@@ -18,10 +18,13 @@ Phases, each of which fails the run:
      the clients' mean, and the launch counter must show that every encrypt
      and decrypt went through the kernel;
   4. hold the three Montgomery kernels against their plain versions,
-     bit-exact: moduli of 64 to 4096 bits and two with an all-ones top
-     limb, batches of 0 to 2048 rows, operands 0, 1 and n - 1; the fused
-     modexp with 64-bit exponents, and with the full 1024-bit CRT
-     exponents of a 2048-bit key against python pow;
+     bit-exact: moduli of 32 to 4096 bits, at the limb counts L on each
+     side of every boundary of the kernels' (threads a row, limbs a
+     thread) dispatch, so that every kernel instance runs, and three with
+     an all-ones top limb; batches of 0 to 2048 rows (row counts that are
+     not a multiple of the rows a warp holds among them), operands 0, 1
+     and n - 1; the fused modexp with 64-bit exponents, and with the full
+     1024-bit CRT exponents of a 2048-bit key against python pow;
   5. one Paillier round of FemnistCNN at full width with 10 clients under
      that key (examples/configs/cnn_paillier_q16_b100_pad.json: int_bits
      2000, batch packing, element_bits 16): 12,066 ciphertexts a client,
@@ -30,14 +33,30 @@ Phases, each of which fails the run:
      the clients' packed q exactly, the new model the clients' mean within
      one quantization step, and the launch counters the kernels' share of
      the path; then a 5-row decrypt, which takes the single-product route;
-  6. timings with CUDA events (printed, not asserted).
-It prints the kernels' JSON line and the card's name and power limit, then
-as its last line {"ok": true, "device": {...}}.  Without a CUDA device it
+  6. timings with CUDA events over runs of launches (printed, not
+     asserted), at the shapes the paths run: mont_mul at one encrypt's
+     12,066 rows x 4096 bits (checked against its plain version there),
+     mont_exp_rows at the decrypt's 24,132 rows x 2048 bits with the key's
+     CRT exponents (sample rows checked against pow), mont_mul_vec at the
+     5-row decrypt's 10 rows, the mask kernel at the round's lanes; each
+     beside its bound (flashe_tpu_torch/tools/roofline.py); then the
+     Montgomery kernels again at 2,048 rows.
+It prints ptxas's registers and spills of every kernel instance after the
+build, the kernels' JSON line and the card's name and power limit, then as
+its last line {"ok": true, "device": {...}}.  Without a CUDA device it
 exits non-zero and prints no result.
+
+    python3 chip_smoke.py --times   # phases 1 and 6 (Montgomery) only
+
+times the Montgomery kernels at their paths' shapes beside their bounds
+and prints no result line: run in a copy of the tree whose
+csrc/montgomery.cu is an older one (same C entry points), it times that
+source in the same call as this one.
 """
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import json
 import random
@@ -61,6 +80,7 @@ from flashe_tpu_torch.protocol.aggregator import (
     ClientBlock, arbiter_reduce, client_download, client_upload)
 from flashe_tpu_torch.protocol.blocks import paillier as pblocks
 from flashe_tpu_torch.quant.quantizer import QuantizingClient
+from flashe_tpu_torch.tools import roofline
 
 INT_BITS, ELEMENT_BITS, N_CLIENTS = 20, 16, 10
 SEED = 0x0F1A5E
@@ -76,8 +96,21 @@ PAILLIER_ARGS = {"key_length": 2048, "quantize": {
     "secure": True}}
 PAILLIER_BITS, PACK_FACTOR = 2000, 4  # factor = ceil(log2 10)
 N_CTS = 12_066  # ceil(1,206,590 / 100) lanes of 100 fields of 20 bits
-MONT_BITS = (64, 250, 256, 1024, 2048, 4096)
+# L = 1, 2, 8, 8, 9, 16, 17, 32, 33, 63, 64, 65, 100, 128: both sides of
+# every boundary of the kernels' layouts, and L % K != 0 in every instance
+# (check_layouts asserts both against the library's own dispatch)
+MONT_BITS = (32, 64, 250, 256, 288, 512, 544, 1024, 1056, 2016, 2048, 2080,
+             3200, 4096)
 MONT_ROWS = (0, 1, 5, 8, 129, 2048)
+# one T-table AES-256 block, counted a pipe at a time with the round keys
+# in registers.  Integer pipe: the first AddRoundKey (4 XOR), 13 rounds of
+# 4 columns x (4 byte extracts, 2 LOP3 that fold the 4 table words and the
+# round key), and the last round (16 byte extracts, 12 byte merges, 4 XOR):
+# 4 + 312 + 32.  Shared-memory loads: 13 x 16 table words and 16 S-box
+# bytes.  Loads bind: 224 / 32 a clock against 348 / 64.
+AES_TTABLE_INT_OPS = 348
+AES_TTABLE_LOADS = 224
+LANE_OPS = 6  # a lane's extract, mask, add, subtract, mask and select
 
 # FIPS-197 appendix C.3: AES-256, key 00 01 .. 1f
 FIPS_PT = "00112233445566778899aabbccddeeff"
@@ -317,11 +350,36 @@ def _same(name, got, want, what):
         (lanes.as_u32(got) - lanes.as_u32(want)).abs().max())
 
 
+def _mont_label(bits, ones=False):
+    L = -(-bits // 32)
+    tpi, k = mg.layout(L)
+    return (f"{bits}-bit{', top limb all ones' if ones else ''} (L {L}, "
+            f"{tpi} threads x {k} limbs)")
+
+
 def _mont_cases():
     # all-ones top limbs put n near R, where the CIOS result overflows R
     # most often; at 64 bits a row's registers also hold limbs above L
-    return [(f"{b}-bit", b, False) for b in MONT_BITS] + [
-        (f"{b}-bit, top limb all ones", b, True) for b in (64, 4096)]
+    return [(_mont_label(b), b, False) for b in MONT_BITS] + [
+        (_mont_label(b, True), b, True) for b in (64, 2048, 4096)]
+
+
+def check_layouts():
+    """The grid's limb counts against the kernels' dispatch, as the library
+    reports it: both sides of every boundary between two (threads a row,
+    limbs a thread) instances, and in every instance an L that is not a
+    multiple of its limbs a thread.  Returns the instances."""
+    table = {L: mg.layout(L) for L in range(1, mg.MAX_LIMBS + 1)}
+    grid = {-(-bits // 32) for bits in MONT_BITS}
+    edges = [L for L in range(1, mg.MAX_LIMBS) if table[L] != table[L + 1]]
+    missing = sorted({L for e in edges for L in (e, e + 1)} - grid)
+    if missing:
+        raise AssertionError(f"the grid misses L = {missing} at a boundary "
+                             f"of the layouts {table}")
+    for inst in set(table.values()):
+        if not any(table[L] == inst and L % inst[1] for L in grid):
+            raise AssertionError(f"no L of the grid runs a tail in {inst}")
+    return sorted(set(table.values()))
 
 
 def check_montgomery_grid(dev):
@@ -329,6 +387,8 @@ def check_montgomery_grid(dev):
     oracle at up to 8 rows); returns the max errors."""
     rng = random.Random(SEED)
     err = {"mont_mul": 0, "mont_mul_vec": 0}
+    print(f"kernel layouts (threads a row, limbs a thread): "
+          f"{check_layouts()}; the grid covers both sides of each boundary")
     for label, bits, ones in _mont_cases():
         t0 = time.perf_counter()
         n1, n2 = _modulus(rng, bits, ones), _modulus(rng, bits, ones)
@@ -363,17 +423,13 @@ def check_montgomery_grid(dev):
     return err
 
 
-EXP_CASES = [(label, bits, ones, (0, 1, 8, 129)) for label, bits, ones in
-             _mont_cases() if bits != 2048] + [
-    ("2048-bit (the CRT decrypt's width)", 2048, False, MONT_ROWS)]
-
-
 def check_exp_grid(dev, keypair):
     """mont_exp_rows against its plain version with 64-bit exponents, rows
     of two moduli mixed; then the key's full CRT exponents against pow."""
     rng = random.Random(SEED + 1)
     err = 0
-    for label, bits, ones, rows in EXP_CASES:
+    for label, bits, ones in _mont_cases():
+        rows = MONT_ROWS if (bits, ones) == (2048, False) else (0, 1, 8, 129)
         t0 = time.perf_counter()
         mods = (_modulus(rng, bits, ones), _modulus(rng, bits))
         pair = modmath.PairMontCtx(*mods, device=dev)
@@ -601,6 +657,95 @@ def time_montgomery(dev, keypair):
     return out, rate
 
 
+def _turns_ms(fn, reps, runs=2):
+    """ms a call of fn(): the mean of `runs` runs of `reps` calls."""
+    fn()
+    return statistics.mean(run_ms(fn, reps) for _ in range(runs))
+
+
+def time_paths(dev, keypair, card):
+    """Each Montgomery kernel at the shape its path gives it, beside its
+    bound; the plain version at the same shape where it finishes in
+    seconds."""
+    pub, prv = keypair
+    rng = random.Random(SEED + 3)
+    out = {}
+    # mont_mul: one encrypt's 12,066 products mod n^2
+    ctx = modmath.MontCtx(pub.nsquare, device=dev)
+    L = ctx.L
+    a, b = (modmath.to_limbs([rng.randrange(pub.nsquare) for _ in
+                              range(N_CTS)], L).to(dev) for _ in range(2))
+    args = (a, b, ctx.n_limbs, ctx.n_prime)
+    what = f"{N_CTS} rows x {32 * L} bits (mod n^2)"
+    _same("mont_mul", mg.mont_mul(*args), mg.mont_mul_ref(*args), what)
+    k, p = time_turns(lambda: mg.mont_mul(*args),
+                      lambda: mg.mont_mul_ref(*args), 50, 1)
+    out["mont_mul"] = dict(ms=k, plain_ms=p, shape=what, plain_shape=what,
+                           bound=roofline.bound_ms(
+                               roofline.mont_imads(N_CTS, L),
+                               4 * L * (3 * N_CTS + 1), card))
+    # mont_exp_rows: the decrypt's rows mod p^2 and q^2, CRT exponents
+    pair = modmath.PairMontCtx(prv.psquare, prv.qsquare, device=dev)
+    L = pair.L
+    nbits = max(prv.p.bit_length(), prv.q.bit_length())
+    exps, mods = (prv.p - 1, prv.q - 1), (prv.psquare, prv.qsquare)
+    digits = torch.from_numpy(np.stack([
+        modmath.exponent_digits(e, nbits) for e in exps])).to(dev)
+    idx = [0] * N_CTS + [1] * N_CTS
+    xs = [rng.randrange(mods[i]) for i in idx]
+    x = modmath.to_limbs(xs, L).to(dev)
+    mi = torch.tensor(idx, dtype=torch.int32, device=dev)
+    tabs = (pair.n_pat, pair.npr_pat, pair.r2_pat, pair.one_pat, digits)
+    got = modmath.from_limbs(mg.mont_exp_rows(x, mi, *tabs))
+    rows = sorted(set(range(0, 2 * N_CTS, 997)) | {N_CTS - 1, N_CTS,
+                                                  2 * N_CTS - 1})
+    if any(got[r] != pow(xs[r], exps[idx[r]], mods[idx[r]]) for r in rows):
+        raise AssertionError("mont_exp_rows != pow at the decrypt's shape")
+    # into the domain, the table's 15, w squarings and one multiply a
+    # digit, out
+    squarings = mg.WINDOW * digits.shape[1]
+    products = 1 + 15 + squarings + digits.shape[1] + 1
+    what = (f"{2 * N_CTS} rows x {32 * L} bits (mod p^2, q^2), "
+            f"{nbits}-bit exponents, {products} products a row, {squarings} "
+            "of them squarings")
+    out["mont_exp_rows"] = dict(
+        ms=_turns_ms(lambda: mg.mont_exp_rows(x, mi, *tabs), 2), shape=what,
+        bound=roofline.bound_ms(
+            roofline.mont_imads(2 * N_CTS, L, products, squarings),
+            4 * (2 * N_CTS * (2 * L + 1)), card))
+    # mont_mul_vec: the 5-row decrypt's 10 rows, 5 mod p^2 and 5 mod q^2
+    vi = torch.arange(10, device=dev) // 5
+    av, bv = (modmath.to_limbs([rng.randrange(mods[i]) for i in
+                                vi.tolist()], L).to(dev) for _ in range(2))
+    vargs = (av, bv, pair.n_pat[vi], pair.npr_pat[vi])
+    what = f"10 rows x {32 * L} bits (mod p^2, q^2)"
+    _same("mont_mul_vec", mg.mont_mul_vec(*vargs), mg.mont_mul_vec_ref(
+        *vargs), what)
+    k, p = time_turns(lambda: mg.mont_mul_vec(*vargs),
+                      lambda: mg.mont_mul_vec_ref(*vargs), 200, 5)
+    out["mont_mul_vec"] = dict(ms=k, plain_ms=p, shape=what, plain_shape=what,
+                               bound=roofline.bound_ms(
+                                   roofline.mont_imads(10, L),
+                                   4 * 10 * (4 * L + 1), card))
+    for name, t in out.items():
+        b, by = t["bound"]
+        plain = (f", plain torch {t['plain_ms']:.4f} ms" if "plain_ms" in t
+                 else "")
+        print(f"{name} at {t['shape']}: kernel {t['ms']:.4f} ms{plain}; "
+              f"bound {b:.4f} ms by {by}, share {b / t['ms']:.3f} (a call, "
+              "over runs of back-to-back calls, CUDA events)")
+    return out
+
+
+def mask_bound(count, card):
+    """The mask kernel's bound at `count` lanes of INT_BITS: two T-table
+    AES-256 blocks for every 128 // INT_BITS lanes, LANE_OPS a lane;
+    4 bytes a lane read and 4 written."""
+    blocks = 2 * -(-count // (128 // INT_BITS))
+    return roofline.bound_ms(blocks * AES_TTABLE_INT_OPS + LANE_OPS * count,
+                             8 * count, card, lds=blocks * AES_TTABLE_LOADS)
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -608,7 +753,28 @@ def nvidia_smi() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def main() -> int:
+def build_kernels():
+    """Every kernel source, one nvcc each, in parallel; prints ptxas's
+    registers and spills of every kernel instance."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
+        list(ex.map(_build.load, KERNEL_SOURCES))
+    print(f"kernel build ({len(KERNEL_SOURCES)} x nvcc in parallel, sm_90a) "
+          f"and load: {time.perf_counter() - t0:.2f} s")
+    for src in KERNEL_SOURCES:
+        for kern, regs, st, ld in _build.ptxas_usage(_build.build_log(src)):
+            print(f"ptxas {src}.cu: {kern}: {regs} registers, spill stores "
+                  f"{st} B, spill loads {ld} B")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--times", action="store_true", help=(
+        "build the kernels and time the Montgomery kernels at their paths' "
+        "shapes (phase 6) only, with no other phase and no result line; in "
+        "a copy of the tree with another csrc/montgomery.cu, this times "
+        "that source against the same bounds"))
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this check runs on "
               "the card only", file=sys.stderr)
@@ -618,12 +784,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    card = roofline.card()
+    print(f"bounds from: {card.describe()}")
 
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
-        list(ex.map(_build.load, KERNEL_SOURCES))
-    print(f"kernel build ({len(KERNEL_SOURCES)} x nvcc in parallel, sm_90a) "
-          f"and load: {time.perf_counter() - t0:.2f} s")
+    build_kernels()
+    if args.times:
+        time_paths(dev, PaillierKeypair.generate_keypair(2048), card)
+        return 0
 
     max_err = check_kernel_grid(dev)
 
@@ -656,7 +823,7 @@ def main() -> int:
     new_params = r["codec"].unflatten(r["new"])
     cnn = FemnistCNN(device=dev).eval()
     cnn.params_from_flax(new_params)
-    cpu = FemnistCNN().eval()
+    cpu = FemnistCNN(device="cpu").eval()
     cpu.params_from_flax({k: v.cpu() for k, v in new_params.items()})
     x = torch.randn(4, 28, 28, 1, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
@@ -682,7 +849,9 @@ def main() -> int:
         arbiter_reduce(cts, INT_BITS)
         agg = statistics.median(event_ms(
             lambda: arbiter_reduce(cts, INT_BITS), 20))
+        bound, by = mask_bound(count, card)
         print(f"{count} lanes, int_bits {INT_BITS}: mask kernel {k:.4f} ms, "
+              f"bound {bound:.4f} ms by {by}, share {bound / k:.3f}, "
               f"plain torch {p:.4f} ms (a call, over runs of calls), "
               f"{N_CLIENTS}-ciphertext sum {agg:.4f} ms (median of calls; "
               f"CUDA events); enc + agg + dec "
@@ -723,33 +892,56 @@ def main() -> int:
     small_launches = check_small_decrypt(dev, keypair, r)
     print(f"5-row decrypt: launches {small_launches} (single per-row-modulus"
           f" products), equal to the full decrypt's first 5")
+    paths = time_paths(dev, keypair, card)
     mont_times, rate = time_montgomery(dev, keypair)
+    # the 2,048-row plain time stands in for mont_exp_rows', whose plain
+    # version would take hours at the decrypt's shape
+    paths["mont_exp_rows"].update(
+        plain_ms=mont_times["mont_exp_rows"][1],
+        ms_at_plain_shape=mont_times["mont_exp_rows"][0],
+        plain_shape="2 x 2,048 rows x 2048 bits, 64-bit exponents")
 
+    # launches_per_round: the FLASHE round (mask) and the Paillier round
     mont_rows = [
-        ("mont_mul", "flashe_tpu/ops/pallas_modmath.py:78", pl_launches),
+        ("mont_mul", "flashe_tpu/ops/pallas_modmath.py:78", pl_launches,
+         pl_launches["mont_mul"]),
         ("mont_mul_vec", "flashe_tpu/ops/pallas_modmath.py:171",
-         small_launches),
+         small_launches, pl_launches["mont_mul_vec"]),
         ("mont_exp_rows", "flashe_tpu/ops/pallas_modmath.py:317",
-         pl_launches)]
+         pl_launches, pl_launches["mont_exp_rows"])]
+    mbound, mby = mask_bound(N_FEMNIST, card)
     print(json.dumps({"kernels": [{
         "name": "flashe_mask_apply",
         "route": "cuda",
         "source": "flashe_tpu_torch/csrc/flashe_mask.cu",
         "replaces": "flashe_tpu/ops/pallas_flashe.py:79",
         "launches": main_launches,
+        "launches_per_round": main_launches,
         "max_abs_err": max_err,
         "ms": times[N_FEMNIST][0],
         "plain_ms": times[N_FEMNIST][1],
+        "shape": f"{N_FEMNIST} lanes, int_bits {INT_BITS}",
+        "bound_ms": mbound,
+        "bound_by": mby,
+        "library_ms": None,
     }] + [{
         "name": name,
         "route": "cuda",
         "source": "flashe_tpu_torch/csrc/montgomery.cu",
         "replaces": replaces,
         "launches": path[name],
+        "launches_per_round": per_round,
         "max_abs_err": mont_err[name],
-        "ms": mont_times[name][0],
-        "plain_ms": mont_times[name][1],
-    } for name, replaces, path in mont_rows]}))
+        "ms": paths[name]["ms"],
+        "plain_ms": paths[name]["plain_ms"],
+        "shape": paths[name]["shape"],
+        "plain_shape": paths[name]["plain_shape"],
+        **({"ms_at_plain_shape": paths[name]["ms_at_plain_shape"]}
+           if "ms_at_plain_shape" in paths[name] else {}),
+        "bound_ms": paths[name]["bound"][0],
+        "bound_by": paths[name]["bound"][1],
+        "library_ms": None,
+    } for name, replaces, path, per_round in mont_rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

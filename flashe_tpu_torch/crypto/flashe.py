@@ -47,7 +47,7 @@ def merge_idx_runs(idx_list):
 class FlasheCipher:
     """Session object owned by one client; the arbiter holds no key."""
 
-    def __init__(self, int_bits: int, mask: str = "double", device="cpu"):
+    def __init__(self, int_bits: int, mask: str = "double", device="cuda"):
         if mask != "double":
             raise NotImplementedError(
                 f"mask={mask!r}: only the double mask is ported; the single "

@@ -126,7 +126,7 @@ class PaillierCipher:
     Values and ciphertexts at this interface are object arrays of python
     ints (the batching quantizer's lanes as big ints)."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.device = resolve_device(device)
         self.public_key: PaillierPublicKey | None = None
         self.privacy_key: PaillierPrivateKey | None = None

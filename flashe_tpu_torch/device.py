@@ -1,4 +1,8 @@
-"""Device selection shared by the port's constructors."""
+"""Device selection shared by the port's constructors.
+
+Every entry point of the port takes device="cuda" by default and resolves
+it here, so it runs on the card unless the caller asks for the CPU
+(device="cpu", as the tests do)."""
 
 from __future__ import annotations
 

@@ -36,7 +36,7 @@ def _named(tree, prefix=""):
 
 
 class FemnistCNN(nn.Module):
-    def __init__(self, num_classes: int = 62, device="cpu"):
+    def __init__(self, num_classes: int = 62, device="cuda"):
         super().__init__()
         kw = dict(device=resolve_device(device))
         self.conv0 = nn.Conv2d(1, 32, 3, **kw)

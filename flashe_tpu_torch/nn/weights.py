@@ -23,7 +23,7 @@ __all__ = ["WeightsCodec"]
 class WeightsCodec:
     """Flatten/unflatten a {path name: tensor} mapping in sorted-path order."""
 
-    def __init__(self, template: Mapping[str, torch.Tensor], device="cpu"):
+    def __init__(self, template: Mapping[str, torch.Tensor], device="cuda"):
         self.device = resolve_device(device)
         self._template_keys = list(template)
         self.keys = sorted(template)

@@ -3,8 +3,10 @@
 Each kernel is one `.cu` file under flashe_tpu_torch/csrc/ with a plain C
 entry point.  At first use it is compiled with nvcc for sm_90a into a shared
 library under build/flashe_tpu_torch/ at the repository root and loaded with
-ctypes.  The library's file name carries the source's hash, so an edited
-source is rebuilt.  Nothing here runs at import time.
+ctypes.  The library's file name carries a hash of the source and the flags,
+so an edited source is rebuilt.  The compiler's messages, ptxas's registers and spills of
+every kernel among them, are kept beside the library (`build_log`).
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -13,17 +15,19 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_dir", "nvcc_path", "load"]
+__all__ = ["NVCC_FLAGS", "build_dir", "nvcc_path", "compile_so", "load",
+           "build_log", "ptxas_usage"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def build_dir() -> Path:
@@ -45,19 +49,66 @@ def nvcc_path() -> str:
                        "flashe_tpu_torch are built from source at first use")
 
 
+def compile_so(src: Path, lib: Path, extra_flags=()) -> str:
+    """nvcc src into the shared library lib (written whole or not at all)
+    with NVCC_FLAGS and extra_flags; returns the compiler's messages."""
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.parent / f".{lib.name}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(src)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed building {src}:\n{res.stderr}")
+    os.replace(tmp, lib)
+    return res.stdout + res.stderr
+
+
+def _lib_path(name: str) -> Path:
+    """The library of csrc/<name>.cu as it reads now, under NVCC_FLAGS."""
+    src = _SRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(
+        NVCC_FLAGS).encode()).hexdigest()[:16]
+    return build_dir() / f"lib{name}_{digest}.so"
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """Compile csrc/<name>.cu if its library is missing or stale; load it."""
-    src = _SRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out_dir = build_dir()
-    lib = out_dir / f"lib{name}_{digest}.so"
+    lib = _lib_path(name)
     if not lib.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f".lib{name}_{digest}.{os.getpid()}.so"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {src}:\n{res.stderr}")
-        os.replace(tmp, lib)
+        log = compile_so(_SRC / f"{name}.cu", lib)
+        lib.with_suffix(".log").write_text(log)
     return ctypes.CDLL(str(lib))
+
+
+def build_log(name: str) -> str:
+    """The compiler's messages from the build of csrc/<name>.cu's library
+    (after load(name))."""
+    return _lib_path(name).with_suffix(".log").read_text()
+
+
+def _kernel_name(mangled: str) -> str:
+    """`mont_mul_kernel<16,8>` for a mangled kernel (template) name."""
+    m = re.search(r"([a-z_]+_kernel)(?:I((?:Li\d+E)+)E)?", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"Li(\d+)E", m.group(2) or "")
+    return f"{m.group(1)}<{','.join(args)}>" if args else m.group(1)
+
+
+def ptxas_usage(log: str):
+    """[(kernel, registers, spill store bytes, spill load bytes)], sorted,
+    from the messages of nvcc -Xptxas -v."""
+    rows, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spills))
+            name, spills = None, (0, 0)
+    return sorted(rows)

@@ -80,7 +80,7 @@ def exponent_digits(e: int, nbits: int) -> np.ndarray:
 class MontCtx:
     """Montgomery context for an odd modulus n over L 32-bit limbs."""
 
-    def __init__(self, n: int, device="cpu"):
+    def __init__(self, n: int, device="cuda"):
         if n % 2 == 0:
             raise ValueError("modulus must be odd")
         self.n = n
@@ -150,7 +150,7 @@ class PairMontCtx:
     rows [B:2B) mod n2, which halves the sequential chain.
     """
 
-    def __init__(self, n1: int, n2: int, device="cpu"):
+    def __init__(self, n1: int, n2: int, device="cuda"):
         self.device = resolve_device(device)
         L = max(_nlimbs(n1), _nlimbs(n2))
         if L > montgomery.MAX_LIMBS:

@@ -35,12 +35,12 @@ import torch.nn.functional as F
 from flashe_tpu_torch.ops import _build
 from flashe_tpu_torch.ops.lanes import as_u32, to_i32
 
-__all__ = ["WINDOW", "MAX_LIMBS", "launches", "mont_mul", "mont_mul_vec",
-           "mont_exp_rows", "mont_mul_ref", "mont_mul_vec_ref",
-           "mont_exp_rows_ref", "select_entry"]
+__all__ = ["WINDOW", "MAX_LIMBS", "layout", "launches", "mont_mul",
+           "mont_mul_vec", "mont_exp_rows", "mont_mul_ref", "mont_mul_vec_ref",
+           "mont_exp_rows_ref", "select_entry", "bind"]
 
 WINDOW = 4  # exponent digit width of mont_exp_rows
-MAX_LIMBS = 128  # 4096-bit moduli: four limbs a lane of one warp a row
+MAX_LIMBS = 128  # 4096-bit moduli: 16 threads a row, 8 limbs a thread
 
 launches = {"mont_mul": 0, "mont_mul_vec": 0, "mont_exp_rows": 0}
 
@@ -171,9 +171,9 @@ def mont_exp_rows_ref(a, mod_idx, n_tab, npr_tab, r2_tab, one_tab,
 _P = ctypes.c_void_p
 
 
-@functools.cache
-def _lib():
-    lib = _build.load("montgomery")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of the three entry points on a library built
+    from csrc/montgomery.cu."""
     i64, i32, u32 = ctypes.c_int64, ctypes.c_int, ctypes.c_uint32
     sigs = {
         "mont_mul": [_P, _P, _P, u32, _P, i64, i32, _P],
@@ -186,6 +186,21 @@ def _lib():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _lib():
+    return bind(_build.load("montgomery"))
+
+
+def layout(L: int):
+    """(threads a row, limbs a thread) of the kernel instance that rows of
+    L limbs launch, as the kernels' dispatch picks it.  Builds and loads
+    the kernels' library, so it runs where nvcc does."""
+    if not 1 <= L <= MAX_LIMBS:
+        raise ValueError(f"L = {L} is outside 1 .. {MAX_LIMBS}")
+    packed = _lib().mont_layout(int(L))  # int in, int out: ctypes' default
+    return packed >> 16, packed & 0xFFFF
 
 
 def _check(name: str, dev: torch.device, **tensors):

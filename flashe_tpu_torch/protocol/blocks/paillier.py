@@ -27,7 +27,7 @@ def _qargs(args):
 class Arbiter:
     """Holds the public key only: multiplies ciphertexts mod n^2."""
 
-    def __init__(self, n: int, device="cpu"):
+    def __init__(self, n: int, device="cuda"):
         self.cipher = PaillierCipher(device)
         self.cipher.set_public_key(PaillierPublicKey(n))
 
@@ -38,7 +38,7 @@ class Arbiter:
 class _Client:
     scheme = "paillier"
 
-    def __init__(self, args, device="cpu"):
+    def __init__(self, args, device="cuda"):
         (self.int_bits, self.batch, self.element_bits, self.padding,
          self.secure) = _qargs(args)
         self.key_length = args.get("key_length", 2048)
@@ -106,7 +106,7 @@ class Host(_Client):
         return self
 
 
-def make_session(args, num_clients: int, device="cpu", keypair=None):
+def make_session(args, num_clients: int, device="cuda", keypair=None):
     """One guest, num_clients - 1 hosts and the arbiter, keyed as the guest
     would key them: returns ([guest, *hosts], arbiter)."""
     guest = Guest(args, device).create_cipher(num_clients, keypair)

@@ -16,11 +16,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from flashe_tpu.quant.aciq import ACIQ
 from flashe_tpu_torch.device import resolve_device
 from flashe_tpu_torch.nn.weights import WeightsCodec
 from flashe_tpu_torch.ops import quantize as qops
 from flashe_tpu_torch.ops.lanes import as_u32
+from flashe_tpu_torch.quant.aciq import ACIQ
 
 __all__ = ["QuantizingClient", "QuantizingArbiter", "quantized_zero"]
 
@@ -70,7 +70,7 @@ class _QuantizingBase:
 
 class QuantizingClient(_QuantizingBase):
     def __init__(self, int_bits, batch, element_bits, padding, secure,
-                 seed: int = 0, device="cpu"):
+                 seed: int = 0, device="cuda"):
         super().__init__(int_bits, batch, element_bits, secure)
         self.padding = padding
         self.device = resolve_device(device)

@@ -1,0 +1,79 @@
+"""The least time an NVIDIA card could take for a kernel's work.
+
+A kernel's bound is the larger of its times on each resource: the bytes it
+must move (each input read once, each output written once) over the card's
+memory rate, and the operations it must do on each pipe over that pipe's
+peak rate.  Pipes issue side by side, so their times are not added.  Rates:
+  - memory: 3.35e12 B/s, the published HBM3 rate of an H100 SXM;
+  - 32-bit integer operations (IMAD, LOP3, shifts, adds): 64 a clock on
+    each SM, so 64 x SMs x the maximum SM clock that
+    `nvidia-smi --query-gpu=clocks.max.sm` reports;
+  - shared-memory loads: 128 bytes a clock on each SM, 32 four-byte lanes.
+Nothing here runs at import time, and nothing runs without a card.
+"""
+
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+__all__ = ["HBM_BYTES_PER_S", "INT32_PER_SM_CLOCK", "LDS_PER_SM_CLOCK",
+           "Card", "card", "bound_ms", "mont_imads"]
+
+HBM_BYTES_PER_S = 3.35e12
+INT32_PER_SM_CLOCK = 64
+LDS_PER_SM_CLOCK = 32
+
+
+class Card:
+    """Name, power limit and integer rates of CUDA device 0."""
+
+    def __init__(self, name: str, power_limit: str, max_sm_mhz: float,
+                 sms: int):
+        self.name, self.power_limit = name, power_limit
+        self.max_sm_mhz, self.sms = max_sm_mhz, sms
+
+    @property
+    def int32_per_s(self) -> float:
+        return INT32_PER_SM_CLOCK * self.sms * self.max_sm_mhz * 1e6
+
+    @property
+    def lds_per_s(self) -> float:
+        return LDS_PER_SM_CLOCK * self.sms * self.max_sm_mhz * 1e6
+
+    def describe(self) -> str:
+        return (f"{self.name}, {self.power_limit}, {self.sms} SMs, max SM "
+                f"clock {self.max_sm_mhz:g} MHz: {self.int32_per_s:.4g} "
+                f"int32 op/s, {self.lds_per_s:.4g} shared-memory loads/s, "
+                f"{HBM_BYTES_PER_S:.4g} B/s")
+
+
+def card() -> Card:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    name, limit, mhz = (f.strip() for f in out.split(","))
+    return Card(name, limit, float(mhz.split()[0]),
+                torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def bound_ms(int_ops: float, nbytes: float, c: Card, lds: float = 0):
+    """(least ms, "operations" or "bytes") for int_ops 32-bit integer
+    operations, lds shared-memory lane loads and nbytes of device-memory
+    traffic."""
+    ops_ms = max(int_ops / c.int32_per_s, lds / c.lds_per_s) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                               "bytes")
+
+
+def mont_imads(rows: int, L: int, products: int = 1,
+               squarings: int = 0) -> int:
+    """IMADs of `products` Montgomery products on each of `rows` rows of L
+    32-bit limbs, `squarings` of them squarings; two IMADs (low and high
+    word) a limb product.  A product forms 2 L^2 limb products (a_i b_j and
+    m n_j); a squaring forms each a_i a_j once, L (L + 1) / 2 + L^2."""
+    general = products - squarings
+    return rows * (general * 4 * L * L + squarings * (L * (L + 1) + 2 * L * L))

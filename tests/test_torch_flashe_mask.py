@@ -65,8 +65,8 @@ def test_mask_apply_base_block_matches_host_oracle():
 def _ciphers(int_bits, n_clients, it):
     port, ref = [], []
     for i in range(n_clients):
-        for cls, out in ((FlasheCipher, port), (jflashe.FlasheCipher, ref)):
-            c = cls(int_bits)
+        for c, out in ((FlasheCipher(int_bits, device="cpu"), port),
+                       (jflashe.FlasheCipher(int_bits), ref)):
             c.idx = i
             c.set_num_clients(n_clients)
             c.generate_prp_seed(assigned_seed=SEED)
@@ -146,14 +146,14 @@ def test_mask_apply_refuses_other_devices():
 
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="single"):
-        FlasheCipher(20, mask="single")
-    c = FlasheCipher(20)
+        FlasheCipher(20, mask="single", device="cpu")
+    c = FlasheCipher(20, device="cpu")
     with pytest.raises(NotImplementedError, match="sparse"):
         c.set_masks([[0, 1]], 4)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         c.set_local_devices(2)
     # batch=True lane packing is ported (tests/test_torch_quant_codec.py)
-    assert QuantizingClient(20, True, 16, True, True).batch
+    assert QuantizingClient(20, True, 16, True, True, device="cpu").batch
 
 
 @pytest.mark.slow

@@ -66,7 +66,7 @@ def test_limbs_roundtrip_and_digits():
 def test_mont_mul_from_to_match_jax(bits, B):
     rng = random.Random(RNG_SEED + bits)
     n = _modulus(rng, bits)
-    pc, jc = pm.MontCtx(n), jm.MontCtx(n)
+    pc, jc = pm.MontCtx(n, device="cpu"), jm.MontCtx(n)
     assert pc.R == jc.R and pc.L * 2 == jc.L
     a, b = _operands(rng, n, B), _operands(rng, n, B)[::-1]
     pa, pb = pm.to_limbs(a, pc.L), pm.to_limbs(b, pc.L)
@@ -100,7 +100,7 @@ def test_mont_mul_v_matches_jax():
 def test_mont_exp_window_matches_jax():
     rng = random.Random(RNG_SEED + 2)
     n = _modulus(rng, 256)
-    pc, jc = pm.MontCtx(n), jm.MontCtx(n)
+    pc, jc = pm.MontCtx(n, device="cpu"), jm.MontCtx(n)
     base = _operands(rng, n, 3)
     e = rng.getrandbits(64) | (1 << 63)
     digits = pm.exponent_digits(e, 64)
@@ -119,7 +119,7 @@ def test_exp_pair_matches_jax(B):
     c1, c2 = _operands(rng, n1, B), _operands(rng, n2, B)
     e1, e2 = rng.getrandbits(64), rng.getrandbits(60)
     d1, d2 = pm.exponent_digits(e1, 64), pm.exponent_digits(e2, 64)
-    jp, pp = jm.PairMontCtx(n1, n2), pm.PairMontCtx(n1, n2)
+    jp, pp = jm.PairMontCtx(n1, n2), pm.PairMontCtx(n1, n2, device="cpu")
     jx1, jx2 = jp.exp_pair(_j(c1, jp.L), _j(c2, jp.L), d1, d2)
     x1, x2 = pp.exp_pair(pm.to_limbs(c1, pp.L), pm.to_limbs(c2, pp.L), d1, d2)
     assert _ints(x1) == _ints(jx1) == [pow(c, e1, n1) for c in c1]
@@ -134,7 +134,7 @@ def test_products_against_oracles(bits, top_ones):
     its overflow limb; operands include 0, 1 and n - 1."""
     rng = random.Random(RNG_SEED + bits)
     n = _modulus(rng, bits, top_ones)
-    ctx = pm.MontCtx(n)
+    ctx = pm.MontCtx(n, device="cpu")
     Rinv = pow(ctx.R, -1, n)
     a = _operands(rng, n, 6)
     b = [n - 1, n - 1, n - 1, 1, 0, rng.randrange(n)]
@@ -159,7 +159,7 @@ def test_products_against_oracles(bits, top_ones):
 def test_exp_pair_against_pow_with_overflow_moduli(B):
     rng = random.Random(RNG_SEED + 4)
     n1, n2 = _modulus(rng, 250, True), _modulus(rng, 250)
-    pp = pm.PairMontCtx(n1, n2)
+    pp = pm.PairMontCtx(n1, n2, device="cpu")
     c1, c2 = _operands(rng, n1, B), _operands(rng, n2, B)
     e1, e2 = rng.getrandbits(32), 1
     d1, d2 = pm.exponent_digits(e1, 32), pm.exponent_digits(e2, 32)
@@ -203,7 +203,7 @@ def test_select_entry_reads_the_digit_entry():
 
 def test_cpu_runs_plain_versions_and_other_devices_raise():
     before = dict(montgomery.launches)
-    ctx = pm.MontCtx(_modulus(random.Random(7), 64))
+    ctx = pm.MontCtx(_modulus(random.Random(7), 64), device="cpu")
     x = pm.to_limbs([3, 5], ctx.L)
     pm.mont_to(ctx, pm.mont_from(ctx, x))
     assert montgomery.launches == before

@@ -80,7 +80,7 @@ def test_cipher_matches_jax(keys):
     rng = np.random.default_rng(22)
     ppub, ppriv = keys["pkeys"]
     jc = keys["jcipher"]
-    pc = pp.PaillierCipher()
+    pc = pp.PaillierCipher(device="cpu")
     pc.set_public_key(ppub)
     pc.set_privacy_key(ppriv)
     msgs = [np.array([int.from_bytes(rng.bytes(30), "big")
@@ -122,10 +122,11 @@ def test_paillier_round_matches_jax(keys):
     decrypts and decodes: the JAX blocks' steps against the port's cores."""
     params, names, weights = _mlp_weights()
     jcodec = JCodec(params)
-    pcodec = WeightsCodec({k: torch.from_numpy(v) for k, v in names.items()})
+    pcodec = WeightsCodec({k: torch.from_numpy(v) for k, v in names.items()},
+                          device="cpu")
     assert -(-pcodec.total // (INT_BITS // (EB + 2))) == N_LANES
     clients, arbiter = pblocks.make_session(ARGS, N_CLIENTS,
-                                            keypair=keys["pkeys"])
+                                            keypair=keys["pkeys"], device="cpu")
     assert arbiter.cipher.privacy_key is None
     jclients = []
     for i in range(N_CLIENTS):
@@ -191,7 +192,7 @@ def test_make_session_keys_hosts_from_the_guest():
     """Without a keypair the guest generates one; the hosts get its primes
     and the arbiter only n."""
     args = dict(ARGS, key_length=128)
-    clients, arbiter = pblocks.make_session(args, 3)
+    clients, arbiter = pblocks.make_session(args, 3, device="cpu")
     guest = clients[0].cipher
     assert guest.get_n().bit_length() == 128
     for c in clients[1:]:

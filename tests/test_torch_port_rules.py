@@ -1,0 +1,121 @@
+"""PyTorch port: the rules every module of flashe_tpu_torch keeps.
+
+- It imports nothing of the JAX package and no jax, and neither does
+  chip_smoke.py, which runs on a machine without them.
+- Its ACIQ is a copy of the JAX package's, value for value.
+- Its entry points run on the card unless the caller asks for the CPU.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from flashe_tpu.quant import aciq as jaciq
+from flashe_tpu_torch.crypto.flashe import FlasheCipher
+from flashe_tpu_torch.crypto.paillier import PaillierCipher, PaillierKeypair
+from flashe_tpu_torch.nn.models import FemnistCNN
+from flashe_tpu_torch.nn.weights import WeightsCodec
+from flashe_tpu_torch.ops.modmath import MontCtx, PairMontCtx
+from flashe_tpu_torch.protocol.blocks import paillier as pblocks
+from flashe_tpu_torch.quant import aciq as paciq
+from flashe_tpu_torch.quant import quantizer as pquant
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = r"""
+import importlib, json, pkgutil, sys
+import flashe_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(flashe_tpu_torch.__path__,
+                                               "flashe_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "flashe_tpu"
+             or m.startswith("flashe_tpu."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert "flashe_tpu_torch.quant.aciq" in out["modules"]
+    assert "flashe_tpu_torch.ops.montgomery" in out["modules"]
+    assert out["bad"] == []
+
+
+def test_quantizer_uses_the_ports_aciq():
+    assert pquant.ACIQ is paciq.ACIQ
+
+
+def test_aciq_table_matches_jax_for_every_width():
+    assert paciq._ALPHA_GAUS == jaciq._ALPHA_GAUS
+    assert paciq._GAUSSIAN_CONST == jaciq._GAUSSIAN_CONST
+    for bits in range(2, 41):
+        assert paciq.ACIQ(bits)._alpha_opt() == jaciq.ACIQ(bits)._alpha_opt()
+
+
+@pytest.mark.parametrize("bits", [2, 8, 16, 31, 32])
+def test_aciq_alphas_match_jax(bits):
+    rng = np.random.default_rng(bits)
+    port, ref = paciq.ACIQ(bits), jaciq.ACIQ(bits)
+    for _ in range(20):
+        lo, hi = sorted(rng.standard_normal(2) * 3)
+        size = int(rng.integers(2, 10**7))
+        sigma = float(rng.random() * 2)
+        assert port.get_alpha_gaus(lo, hi, size) == ref.get_alpha_gaus(
+            lo, hi, size)
+        assert port.get_alpha_gaus_direct(sigma) == \
+            ref.get_alpha_gaus_direct(sigma)
+
+
+_ARGS = {"key_length": 128, "quantize": {
+    "int_bits": 120, "batch": True, "element_bits": 16, "padding": True,
+    "secure": True}}
+
+
+def _constructors():
+    keypair = PaillierKeypair.generate_keypair(128)
+    n = keypair[0].n
+    template = {"w": torch.zeros(3, 2)}
+    return {
+        "FlasheCipher": lambda: FlasheCipher(20),
+        "PaillierCipher": lambda: PaillierCipher(),
+        "FemnistCNN": lambda: FemnistCNN(),
+        "WeightsCodec": lambda: WeightsCodec(template),
+        "MontCtx": lambda: MontCtx(n),
+        "PairMontCtx": lambda: PairMontCtx(n, n + 2),
+        "QuantizingClient": lambda: pquant.QuantizingClient(
+            20, False, 16, True, True),
+        "Arbiter": lambda: pblocks.Arbiter(n),
+        "Guest": lambda: pblocks.Guest(_ARGS),
+        "Host": lambda: pblocks.Host(_ARGS),
+        "make_session": lambda: pblocks.make_session(_ARGS, 2,
+                                                     keypair=keypair),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "FlasheCipher", "PaillierCipher", "FemnistCNN", "WeightsCodec",
+    "MontCtx", "PairMontCtx", "QuantizingClient", "Arbiter", "Guest", "Host",
+    "make_session"])
+def test_entry_points_default_to_the_card(name):
+    """Called with no device, each entry point asks for the card: on a host
+    without one it raises and never carries on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    make = _constructors()[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()

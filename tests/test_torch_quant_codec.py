@@ -35,7 +35,7 @@ def _named(tree):
 
 def test_femnist_params_roundtrip_flax(femnist):
     _, np_params = femnist
-    model = FemnistCNN()
+    model = FemnistCNN(device="cpu")
     model.params_from_flax(np_params)
     assert sum(p.numel() for p in model.parameters()) == N_FEMNIST
     back = model.params_to_flax()
@@ -48,7 +48,7 @@ def test_femnist_logits_match_flax(femnist):
     x = np.random.default_rng(0).standard_normal((4, 28, 28, 1)).astype(
         np.float32)
     want = np.asarray(jmodels.FemnistCNN().apply({"params": params}, x))
-    model = FemnistCNN().eval()
+    model = FemnistCNN(device="cpu").eval()
     model.params_from_flax(np_params)
     with torch.no_grad():
         got = model(torch.from_numpy(x)).numpy()
@@ -60,9 +60,9 @@ def test_femnist_logits_match_flax(femnist):
 def test_codec_matches_jax(femnist):
     params, np_params = femnist
     jc = JCodec(params)
-    model = FemnistCNN()
+    model = FemnistCNN(device="cpu")
     model.params_from_flax(np_params)
-    pc = WeightsCodec(model.params_to_flax())
+    pc = WeightsCodec(model.params_to_flax(), device="cpu")
     assert pc.keys == jc.keys and pc.total == jc.total == N_FEMNIST
     assert pc.sizes == jc.sizes
     np.testing.assert_array_equal(pc.segment_ids.numpy(),
@@ -146,9 +146,10 @@ def test_quantizing_client_matches_jax():
     jtree = {"Dense_0": {"kernel": template["Dense_0/kernel"],
                          "bias": template["Dense_0/bias"]},
              "Dense_1": {"kernel": template["Dense_1/kernel"]}}
-    pc = WeightsCodec({k: torch.from_numpy(v) for k, v in template.items()})
+    pc = WeightsCodec({k: torch.from_numpy(v) for k, v in template.items()},
+                      device="cpu")
     jc = JCodec(jtree)
-    port = pquant.QuantizingClient(20, False, 16, True, True, seed=2)
+    port = pquant.QuantizingClient(20, False, 16, True, True, seed=2, device="cpu")
     ref = jquant.QuantizingClient(20, False, 16, True, True, seed=2)
     for c, codec in ((port, pc), (ref, jc)):
         c.set_num_clients(3)
@@ -188,8 +189,8 @@ def test_quantized_zero_and_generator_draws():
         assert pquant.quantized_zero(16, u) == jquant.quantized_zero(16, key)
     assert pquant.quantized_zero(16, 0.0) == 32767
     assert pquant.quantized_zero(16, 0.75) == 32768
-    a = pquant.QuantizingClient(20, False, 16, True, True, seed=4)
-    b = pquant.QuantizingClient(20, False, 16, True, True, seed=4)
+    a = pquant.QuantizingClient(20, False, 16, True, True, seed=4, device="cpu")
+    b = pquant.QuantizingClient(20, False, 16, True, True, seed=4, device="cpu")
     assert a.quantized_zero() == b.quantized_zero()
     assert torch.equal(torch.rand(8, generator=a.generator),
                        torch.rand(8, generator=b.generator))
@@ -245,8 +246,9 @@ def test_quantizing_client_batch_matches_jax():
                 "Dense_0/bias": np.zeros((5,), np.float32)}
     jtree = {"Dense_0": {"kernel": template["Dense_0/kernel"],
                          "bias": template["Dense_0/bias"]}}
-    pc = WeightsCodec({k: torch.from_numpy(v) for k, v in template.items()})
-    port = pquant.QuantizingClient(240, True, 16, True, True, seed=3)
+    pc = WeightsCodec({k: torch.from_numpy(v) for k, v in template.items()},
+                      device="cpu")
+    port = pquant.QuantizingClient(240, True, 16, True, True, seed=3, device="cpu")
     ref = jquant.QuantizingClient(240, True, 16, True, True, seed=3)
     for c, codec in ((port, pc), (ref, JCodec(jtree))):
         c.set_num_clients(3)

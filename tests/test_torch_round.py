@@ -50,11 +50,13 @@ def _setup():
     weights = [{k: (rng.standard_normal(v.shape) * 0.2).astype(np.float32)
                 for k, v in names.items()} for _ in range(N_CLIENTS)]
     jcodec = JCodec(params)
-    pcodec = WeightsCodec({k: torch.from_numpy(v) for k, v in names.items()})
+    pcodec = WeightsCodec({k: torch.from_numpy(v) for k, v in names.items()},
+                          device="cpu")
     port, ref = [], []
     for i in range(N_CLIENTS):
-        pc, jc = FlasheCipher(INT_BITS), JCipher(INT_BITS)
-        pq = QuantizingClient(INT_BITS, False, EB, True, True, seed=i)
+        pc, jc = FlasheCipher(INT_BITS, device="cpu"), JCipher(INT_BITS)
+        pq = QuantizingClient(INT_BITS, False, EB, True, True, seed=i,
+                              device="cpu")
         jq = JQuant(INT_BITS, False, EB, True, True, seed=i)
         for c, q, codec in ((pc, pq, pcodec), (jc, jq, jcodec)):
             c.idx = i

@@ -1,0 +1,102 @@
+"""PyTorch port: the host side of the kernel measurements, on the CPU.
+
+The bounds of flashe_tpu_torch/tools/roofline.py and chip_smoke.py, the
+parsing of ptxas's messages in flashe_tpu_torch/ops/_build.py, and the
+limb counts that the Montgomery layout query refuses before it builds.
+"""
+
+from __future__ import annotations
+
+import pytest
+
+import chip_smoke
+from flashe_tpu_torch.ops import _build, montgomery
+from flashe_tpu_torch.tools import roofline
+
+CARD = roofline.Card("H100", "700.00 W", 1980.0, 132)
+
+
+def test_mont_bounds():
+    # one encrypt's products: 12,066 rows x 128 limbs, 4 L^2 IMAD a row
+    assert roofline.mont_imads(12_066, 128) == 790_757_376
+    ms, by = roofline.bound_ms(roofline.mont_imads(12_066, 128),
+                               4 * 128 * (3 * 12_066 + 1), CARD)
+    assert by == "operations"
+    assert ms == pytest.approx(790_757_376 / (64 * 132 * 1.98e9) * 1e3)
+    assert 0.047 < ms < 0.048
+    # the decrypt: 24,132 rows x 64 limbs, 1,297 products a row of which
+    # 1,024 are squarings
+    imads = roofline.mont_imads(24_132, 64, 1297, 1024)
+    assert imads == 24_132 * (273 * 4 * 64 * 64 + 1024 * (3 * 64 * 64 + 64))
+    ms, by = roofline.bound_ms(imads, 0, CARD)
+    assert by == "operations" and 24.6 < ms < 24.8
+    # a copy is bound by bytes
+    assert roofline.bound_ms(1, 3.35e9, CARD) == (pytest.approx(1.0),
+                                                  "bytes")
+
+
+@pytest.mark.parametrize("L", [1, 2, 64, 128])
+def test_squaring_forms_each_cross_product_once(L):
+    # L (L + 1) / 2 products a_i a_j (i <= j), L^2 products m n_j, each
+    # two IMADs; a general product forms 2 L^2
+    assert roofline.mont_imads(1, L, 1, 1) == 2 * (L * (L + 1) // 2 + L * L)
+    assert roofline.mont_imads(1, L, 1) == 4 * L * L
+    assert roofline.mont_imads(3, L, 5, 2) == 3 * (
+        3 * 4 * L * L + 2 * roofline.mont_imads(1, L, 1, 1))
+
+
+def test_pipes_are_not_added():
+    # integer ops and shared-memory loads issue side by side: the bound is
+    # the slower pipe's time, not the sum
+    ops = CARD.int32_per_s * 1e-3  # 1 ms of integer work
+    assert roofline.bound_ms(ops, 0, CARD) == (pytest.approx(1.0),
+                                               "operations")
+    assert roofline.bound_ms(ops, 0, CARD, lds=CARD.lds_per_s * 0.5e-3) \
+        == (pytest.approx(1.0), "operations")
+    assert roofline.bound_ms(0, 0, CARD, lds=CARD.lds_per_s * 2e-3) == (
+        pytest.approx(2.0), "operations")
+    assert CARD.lds_per_s == CARD.int32_per_s / 2
+
+
+def test_mask_bound_is_its_table_loads():
+    # 1,206,590 lanes of 20 bits: 2 x 201,099 AES-256 blocks, 224 table
+    # loads a block at 32 a clock an SM
+    ms, by = chip_smoke.mask_bound(1_206_590, CARD)
+    assert by == "operations"
+    loads_ms = 2 * 201_099 * 224 / (32 * 132 * 1.98e9) * 1e3
+    assert ms == pytest.approx(loads_ms)
+    int_ms = (2 * 201_099 * 348 + 6 * 1_206_590) / CARD.int32_per_s * 1e3
+    assert int_ms < ms
+    assert 0.0107 < ms < 0.0108
+
+
+_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN43_INTERNAL_x_mont_mul15mont_exp_kernelILi16ELi4EEEvPKjPKiS2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_INTERNAL_x_mont_mul15mont_exp_kernelILi16ELi4EEEvPKjPKiS2_
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 56 registers, used 0 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115mont_mul_kernelILi4EEEvPKjS2_S2_jPjli' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115mont_mul_kernelILi4EEEvPKjS2_S2_jPjli
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 44 registers, used 0 barriers
+"""
+
+
+def test_ptxas_usage():
+    assert _build.ptxas_usage(_PTXAS) == [("mont_exp_kernel<16,4>", 56, 8, 4),
+                                          ("mont_mul_kernel<4>", 44, 0, 0)]
+
+
+@pytest.mark.parametrize("mangled, want", [
+    ("_ZN12_GLOBAL__N_119mont_mul_vec_kernelILi16ELi8EEEvPKjS2_S2_S2_Pjli",
+     "mont_mul_vec_kernel<16,8>"),
+    ("_ZN12_GLOBAL__N_118flashe_mask_kernelEPKjPjli", "flashe_mask_kernel"),
+    ("_Z3foov", "_Z3foov")])
+def test_kernel_names(mangled, want):
+    assert _build._kernel_name(mangled) == want
+
+
+@pytest.mark.parametrize("L", [0, montgomery.MAX_LIMBS + 1])
+def test_layout_refuses_limb_counts_before_building(L):
+    with pytest.raises(ValueError):
+        montgomery.layout(L)
