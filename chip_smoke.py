@@ -7,8 +7,12 @@ Phases, each of which fails the run:
   1. build the CUDA kernels (csrc/flashe_mask.cu and csrc/montgomery.cu),
      one nvcc each, in parallel, for sm_90a;
   2. hold the mask kernel against its plain torch version on the card: a
-     grid of int_bits x lane counts x counter offsets, bit-exact, plus the
-     FIPS-197 AES-256 vector and golden lanes from the `cryptography` AES;
+     grid of int_bits (1 to 32) x lane counts x counter offsets, bit-exact:
+     counts on both sides of one warp's span and of one pass of the
+     kernel's resident grid (both asked of the built library), counts that
+     are no multiple of the lanes a block, offsets whose low counter word
+     wraps and that are negative as int64; plus the FIPS-197 AES-256
+     vector and golden lanes from the `cryptography` AES;
   3. one FLASHE round of FemnistCNN at full width (1,206,590 lanes) with 10
      clients, int_bits 20, element_bits 16, the secure ACIQ quantizer and
      the double mask, through client_upload / arbiter_reduce /
@@ -38,20 +42,25 @@ Phases, each of which fails the run:
      12,066 rows x 4096 bits (checked against its plain version there),
      mont_exp_rows at the decrypt's 24,132 rows x 2048 bits with the key's
      CRT exponents (sample rows checked against pow), mont_mul_vec at the
-     5-row decrypt's 10 rows, the mask kernel at the round's lanes; each
-     beside its bound (flashe_tpu_torch/tools/roofline.py); then the
-     Montgomery kernels again at 2,048 rows.
+     5-row decrypt's 10 rows, the mask kernel at the round's lanes and at
+     4,194,304 (a call over CUDA graphs of calls, which the host's launch
+     rate does not hold back, and over runs of calls from the host); each
+     beside its bound (flashe_tpu_torch/tools/roofline.py); then the Montgomery
+     kernels again at 2,048 rows.
 It prints ptxas's registers and spills of every kernel instance after the
-build, the kernels' JSON line and the card's name and power limit, then as
+build and, where the toolkit has cuobjdump, the mask kernel's instruction
+counts; the kernels' JSON line and the card's name and power limit, then as
 its last line {"ok": true, "device": {...}}.  Without a CUDA device it
 exits non-zero and prints no result.
 
-    python3 chip_smoke.py --times   # phases 1 and 6 (Montgomery) only
+    python3 chip_smoke.py --times   # phases 1 and 6 only
 
-times the Montgomery kernels at their paths' shapes beside their bounds
-and prints no result line: run in a copy of the tree whose
-csrc/montgomery.cu is an older one (same C entry points), it times that
-source in the same call as this one.
+times the mask kernel and the Montgomery kernels at their paths' shapes
+beside their bounds and prints no result line: run in a copy of the tree
+whose csrc/flashe_mask.cu or csrc/montgomery.cu is an older one (same C
+entry points; an older flashe_mask_apply does not read the table pointer
+that the wrapper passes last), it times that source in the same call as
+this one.
 """
 
 from __future__ import annotations
@@ -84,10 +93,16 @@ from flashe_tpu_torch.tools import roofline
 
 INT_BITS, ELEMENT_BITS, N_CLIENTS = 20, 16, 10
 SEED = 0x0F1A5E
-GRID_INT_BITS = (8, 16, 20, 25, 32)
+GRID_INT_BITS = (1, 8, 16, 20, 25, 31, 32)
+# to these check_kernel_grid adds, for each int_bits, the lane counts one
+# short of and one past a warp's span and one pass of the resident grid
 GRID_COUNTS = (1, 5, 7, 3000, 1_206_590, 4_194_304)
-GRID_BASES = (0, 3, 96)
+# the low counter word wraps at 2^32 - 2; -3 runs through 2^64 to 0
+GRID_BASES = (0, 3, 96, 2**32 - 2, -3)
 N_FEMNIST = 1_206_590
+# --times also reads the mask kernel's fixed cost: at int_bits 20 one
+# counter block, one 32-block span on each of 132 SMs, 1,024 blocks on each
+MASK_SMALL_COUNTS = (6, 25_344, 811_008)
 KERNEL_SOURCES = ("flashe_mask", "montgomery")
 
 # the Paillier configuration, examples/configs/cnn_paillier_q16_b100_pad.json
@@ -141,14 +156,29 @@ def round_keys(dev):
         "int32")).to(dev)
 
 
+def grid_counts(m, span, one_pass):
+    """GRID_COUNTS and, at m bits a lane, the counts on both sides of a
+    warp's span and of one pass of the grid (both in counter blocks)."""
+    merge = masks.merge_size(m)
+    return GRID_COUNTS + tuple(edge * merge + d for edge in (span, one_pass)
+                               for d in (-1, 1))
+
+
 def check_kernel_grid(dev):
     """Kernel against mask_apply_ref on the card; returns the max error."""
     rk = round_keys(dev)
     gen = torch.Generator(dev).manual_seed(SEED)
+    span, one_pass = fm.layout()
+    print(f"mask kernel layout: a warp makes {span} counter blocks at a "
+          f"time, one pass of the resident grid {one_pass}")
     max_err = 0
     for m in GRID_INT_BITS:
         n_ok = 0
-        for count in GRID_COUNTS:
+        counts = grid_counts(m, span, one_pass)
+        if all(c % masks.merge_size(m) == 0 for c in counts):
+            raise AssertionError(f"no count of the grid ends inside a "
+                                 f"counter block at int_bits={m}")
+        for count in counts:
             q = lanes.to_i32(torch.randint(0, 1 << m, (count,), generator=gen,
                                            device=dev, dtype=torch.int64))
             for base in GRID_BASES:
@@ -242,6 +272,54 @@ def run_round(dev, model, survivors, it):
                                       new=new)
 
 
+def time_round_phases(dev, model, reps=7):
+    """Median ms of each phase of the full FLASHE round over reps rounds
+    after one warm-up round, host clock with a synchronize around each
+    phase: the 10 clients' normalize + quantize, their encrypts, the
+    arbiter's sum, client 0's decrypt, its unquantize + unnormalize."""
+    codec = WeightsCodec(model.params_to_flax(), device=dev)
+    blocks = make_clients(dev, codec, N_CLIENTS)
+    flats = client_flats(dev, codec, model, N_CLIENTS)
+    acc = {}
+
+    def timed(fn, key):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            acc[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    for b in blocks:
+        b.encrypt = timed(b.encrypt, "encrypt")
+    blocks[0].decrypt = timed(blocks[0].decrypt, "decrypt")
+    samples = []
+    for i in range(reps + 1):
+        acc.update(encrypt=0.0, decrypt=0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ups = [client_upload(b, codec, f, 100 + i)
+               for b, f in zip(blocks, flats)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        agg = arbiter_reduce([u.lanes for u in ups], INT_BITS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        client_download(blocks[0], agg, [j for u in ups for j in u.idx_list],
+                        codec.total, sum(u.degree for u in ups))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        samples.append({
+            "normalize + quantize x 10": t1 - t0 - acc["encrypt"],
+            "encrypt x 10": acc["encrypt"], "sum": t2 - t1,
+            "decrypt": acc["decrypt"],
+            "unquantize + unnormalize": t3 - t2 - acc["decrypt"]})
+    return {k: statistics.median(s[k] for s in samples[1:]) * 1e3
+            for k in samples[0]}
+
+
 def check_round(dev, survivors, it, r):
     """Decrypted lanes == sum(q) mod 2^20; new model within one step."""
     codec, blocks, ups = r["codec"], r["blocks"], r["ups"]
@@ -315,14 +393,54 @@ def time_turns(kern, plain, reps, plain_reps):
             statistics.mean(samples["plain"]))
 
 
-def time_kernel(dev, count, reps=10):
-    """ms a call of the mask kernel and of its plain version."""
+def graph_ms(fn, reps):
+    """Milliseconds a call of fn() with reps calls captured in one CUDA
+    graph and the graph replayed: the card's rate, whatever the host's
+    launch rate is."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    ms = run_ms(graph.replay, 1) / reps
+    del graph
+    return ms
+
+
+def time_kernel(dev, count, reps=50, plain_reps=10):
+    """ms a call of the mask kernel over CUDA graphs of calls (its time on
+    the card), of its plain version, and of the kernel over runs of calls
+    from the host (which the host's launch rate holds back once the kernel
+    is shorter than a launch); the mean of two each."""
     rk = round_keys(dev)
     q = lanes.to_i32(torch.randint(0, 1 << 16, (count,), device=dev,
                                    dtype=torch.int64))
-    return time_turns(lambda: fm.mask_apply(q, rk, 0, 1, 2, INT_BITS),
-                      lambda: fm.mask_apply_ref(q, rk, 0, 1, 2, INT_BITS),
-                      reps, reps)
+
+    def kern():
+        return fm.mask_apply(q, rk, 0, 1, 2, INT_BITS)
+
+    calls, plain = time_turns(
+        kern, lambda: fm.mask_apply_ref(q, rk, 0, 1, 2, INT_BITS), reps,
+        plain_reps)
+    return (statistics.mean(graph_ms(kern, reps) for _ in range(2)), plain,
+            calls)
+
+
+def time_mask(dev, card, counts=(N_FEMNIST, 4_194_304)):
+    """The mask kernel at the round's lanes and at 4,194,304, beside its
+    bound and its plain version; returns {count: (ms, plain ms, ms over
+    calls from the host)}."""
+    times = {}
+    for count in counts:
+        times[count] = k, p, calls = time_kernel(dev, count)
+        bound, by = mask_bound(count, card)
+        print(f"{count} lanes, int_bits {INT_BITS}: mask kernel {k:.4f} ms a "
+              f"call over CUDA graphs of calls, bound {bound:.4f} ms by {by}, "
+              f"share {bound / k:.3f}; {calls:.4f} ms a call over runs of "
+              f"calls from the host; plain torch {p:.4f} ms (CUDA events)")
+    return times
 
 
 # ---------------------------------------------------------------------------
@@ -753,6 +871,24 @@ def nvidia_smi() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def print_mask_sass():
+    """The mask kernel's instructions by opcode, where cuobjdump is at
+    hand.  The span loop's body is straight-line code, two AES-256 blocks a
+    thread, so the table loads and the integer operations of the whole
+    kernel are, to within its prologue and the lane loop, those of one
+    counter block."""
+    ops = (_build.sass_opcodes("flashe_mask") or {}).get("flashe_mask_kernel")
+    if not ops:
+        print("sass flashe_mask.cu: no cuobjdump, not counted")
+        return
+    integer = sum(n for op, n in ops.items() if op in (
+        "PRMT", "LOP3", "SHF", "IADD3", "VIADD", "LEA", "SEL", "ISETP",
+        "IMAD", "MOV", "IABS", "IMNMX"))
+    print(f"sass flashe_mask.cu: flashe_mask_kernel: {sum(ops.values())} "
+          f"instructions, {ops['LDS']} LDS, {integer} integer ("
+          + ", ".join(f"{op} {n}" for op, n in ops.most_common(12)) + ")")
+
+
 def build_kernels():
     """Every kernel source, one nvcc each, in parallel; prints ptxas's
     registers and spills of every kernel instance."""
@@ -765,15 +901,17 @@ def build_kernels():
         for kern, regs, st, ld in _build.ptxas_usage(_build.build_log(src)):
             print(f"ptxas {src}.cu: {kern}: {regs} registers, spill stores "
                   f"{st} B, spill loads {ld} B")
+    print_mask_sass()
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--times", action="store_true", help=(
-        "build the kernels and time the Montgomery kernels at their paths' "
-        "shapes (phase 6) only, with no other phase and no result line; in "
-        "a copy of the tree with another csrc/montgomery.cu, this times "
-        "that source against the same bounds"))
+        "build the kernels and time the mask kernel and the Montgomery "
+        "kernels at their paths' shapes (phase 6) only, with no other phase "
+        "and no result line; in a copy of the tree with another "
+        "csrc/flashe_mask.cu or csrc/montgomery.cu, this times that source "
+        "against the same bounds"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this check runs on "
@@ -789,6 +927,7 @@ def main(argv=None) -> int:
 
     build_kernels()
     if args.times:
+        time_mask(dev, card, MASK_SMALL_COUNTS + (N_FEMNIST, 4_194_304))
         time_paths(dev, PaillierKeypair.generate_keypair(2048), card)
         return 0
 
@@ -840,21 +979,17 @@ def main(argv=None) -> int:
     # timings: the kernel against its plain version, the 10-ciphertext sum,
     # bench.py's metric n / (one encrypt + the sum + the decrypt), and the
     # whole round
-    times = {}
-    for count in (N_FEMNIST, 4_194_304):
-        times[count] = k, p = time_kernel(dev, count)
+    times = time_mask(dev, card)
+    for count, (_, _, k) in times.items():
         cts = [lanes.to_i32(torch.randint(0, 1 << 32, (count,), device=dev,
                                           dtype=torch.int64))
                for _ in range(N_CLIENTS)]
         arbiter_reduce(cts, INT_BITS)
         agg = statistics.median(event_ms(
             lambda: arbiter_reduce(cts, INT_BITS), 20))
-        bound, by = mask_bound(count, card)
-        print(f"{count} lanes, int_bits {INT_BITS}: mask kernel {k:.4f} ms, "
-              f"bound {bound:.4f} ms by {by}, share {bound / k:.3f}, "
-              f"plain torch {p:.4f} ms (a call, over runs of calls), "
-              f"{N_CLIENTS}-ciphertext sum {agg:.4f} ms (median of calls; "
-              f"CUDA events); enc + agg + dec "
+        print(f"{count} lanes, int_bits {INT_BITS}: {N_CLIENTS}-ciphertext "
+              f"sum {agg:.4f} ms (median of calls; CUDA events); enc + agg + "
+              f"dec, the kernel as the host calls it, "
               f"{count / ((2 * k + agg) / 1e3):.1f} elements/s")
     round_ms = []
     for rep in range(5):
@@ -864,6 +999,10 @@ def main(argv=None) -> int:
           f"decrypt+decode, {N_FEMNIST} lanes): median "
           f"{statistics.median(round_ms):.2f} ms, samples "
           f"{[round(v, 2) for v in round_ms]} (host clock to synchronize)")
+    phases = time_round_phases(dev, model)
+    print("full round by phase (medians of 7 rounds, host clock, a "
+          "synchronize around each phase): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in phases.items()))
 
     # the Paillier path: its kernels on their grids, then the round
     t0 = time.perf_counter()
@@ -919,6 +1058,7 @@ def main(argv=None) -> int:
         "launches_per_round": main_launches,
         "max_abs_err": max_err,
         "ms": times[N_FEMNIST][0],
+        "host_calls_ms": times[N_FEMNIST][2],
         "plain_ms": times[N_FEMNIST][1],
         "shape": f"{N_FEMNIST} lanes, int_bits {INT_BITS}",
         "bound_ms": mbound,

@@ -13,179 +13,314 @@
 // flashe_tpu/ops/masks.py, bit for bit.  m <= 32; lanes are int32 tensors
 // holding uint32 bit patterns, and all arithmetic here is uint32.
 //
-// What bounds it on this card: integer ALU work.  Each block costs two
-// AES-256 encryptions (2 x 14 rounds of 16 S-box lookups plus MixColumns)
-// against only 8 bytes of device-memory traffic per lane (read q, write out),
-// so the kernel sits far on the compute side of the roofline.  The design:
-// one thread computes one block for both streams, entirely in registers
-// (all loops over state bytes and rounds are unrolled), with the S-box and
-// the 240 round-key bytes in shared memory, loaded once per thread block;
-// round-key reads are warp-uniform broadcasts.  The 128-bit block is shifted
-// down one lane at a time, so no register array is indexed dynamically.
-// The TPU kernel's permuted lane layout, 32-aligned counters and tile-size
-// switches are not carried over: this kernel reads and writes linear lane
+// What bounds it on this card: the kernel's own work in shared memory and
+// on the integer pipe, not device memory.  A counter block costs two AES-256
+// encryptions against 8 bytes of device memory a lane; an SM takes 32
+// shared-memory loads and 64 integer operations a clock.  As built (ptxas,
+// CUDA 12.8) a counter block at m = 20 is about 475 loads (436 table words:
+// 448 less the 12 that the two streams share in the first round; 15 of round
+// keys; 4 for each of its 6 lanes) and about 930 PRMT and LOP3, so the two
+// pipes are level, 0.24 us a span of 32 counter blocks on an SM at 1,980
+// MHz, and the kernel runs at that rate on an H100 80GB HBM3 at 700 W; a
+// launch's fixed cost (the launch, the 64 KB of tables) is about 4 us.  The
+// design, each point against one cost:
+//
+//  * The state is four big-endian column words.  A main round is, for each
+//    column, four table words and the round-key word:
+//      Te0[s0>>24] ^ Te2[(s2>>8)&255] ^ rk ^ ror8(Te0[(s1>>16)&255] ^ Te2[s3&255])
+//    with Te0[x] = (2S, S, S, 3S), Te2 = ror16(Te0), and Te1, Te3 their
+//    rotations by 8, taken after the XOR because rotation is linear.  The
+//    input is (iter, idx, ctr >> 32, ctr) as it stands and the output
+//    columns 3..0 are the words w[0..3] of the 128-bit value: there are no
+//    byte splits or merges.  The last round takes S(x) from the tables' own
+//    bytes (byte 3 and 0 of Te2[x], byte 2 and 1 of Te0[x]), so there is no
+//    S-box table.
+//  * The tables are laid out as 256 rows of 256 bytes: row x holds 32 copies
+//    of Te0[x], then 32 copies of Te2[x].  Lane l of a warp reads copy l, so
+//    it reads bank l whatever x is: no load takes a second pass, and the
+//    time does not depend on the data.  The 64 KB lie on a 64 KB boundary
+//    of the shared window, so a load's address is the lane's address in row
+//    0 with byte 1 replaced by the state byte: one PRMT and no add, and Te2
+//    is the immediate offset 128.  A column is 4 PRMT, 4 loads, 2 LOP3 and
+//    1 PRMT.
+//  * The 60 round-key words are packed once a thread block and read as 15
+//    warp-uniform 16-byte loads a counter block, shared by both streams.
+//    (Registers would take 60 a thread; a by-value kernel parameter would
+//    need the words on the host, a synchronize on every launch.)
+//  * One resident set of thread blocks, a block an SM, walks the spans of 32
+//    counter blocks: the 64 KB of tables is filled once an SM a launch, and
+//    a thread has two streams x four columns of independent chains in
+//    flight.  Spans go round-robin over the blocks first, so every SM gets
+//    the same number of spans to within one whatever the count is.
+//  * A warp's span is 32 x merge consecutive lanes.  The threads put their
+//    eight output words in shared memory (5 words a block and stream, an
+//    odd stride); then thread t of the warp takes lanes t, t + 32, .. of the
+//    span, each cut from the one or two words it lies in with a funnel
+//    shift, so q is read and out is written as whole 128-byte lines.
+//
+// The TPU kernel's bitsliced circuit, permuted lane layout, 32-aligned
+// counters and tile-size switches are not carried over: that circuit exists
+// because the TPU has no gather.  This kernel reads and writes linear lane
 // order and takes any 64-bit base_block.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kWarps = 32;  // warps a thread block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSpan = 32;  // counter blocks a warp makes at a time
+constexpr int kMaxDevices = 64;
 
-__constant__ uint8_t kSbox[256] = {
-    0x63, 0x7c, 0x77, 0x7b, 0xf2, 0x6b, 0x6f, 0xc5, 0x30, 0x01, 0x67, 0x2b,
-    0xfe, 0xd7, 0xab, 0x76, 0xca, 0x82, 0xc9, 0x7d, 0xfa, 0x59, 0x47, 0xf0,
-    0xad, 0xd4, 0xa2, 0xaf, 0x9c, 0xa4, 0x72, 0xc0, 0xb7, 0xfd, 0x93, 0x26,
-    0x36, 0x3f, 0xf7, 0xcc, 0x34, 0xa5, 0xe5, 0xf1, 0x71, 0xd8, 0x31, 0x15,
-    0x04, 0xc7, 0x23, 0xc3, 0x18, 0x96, 0x05, 0x9a, 0x07, 0x12, 0x80, 0xe2,
-    0xeb, 0x27, 0xb2, 0x75, 0x09, 0x83, 0x2c, 0x1a, 0x1b, 0x6e, 0x5a, 0xa0,
-    0x52, 0x3b, 0xd6, 0xb3, 0x29, 0xe3, 0x2f, 0x84, 0x53, 0xd1, 0x00, 0xed,
-    0x20, 0xfc, 0xb1, 0x5b, 0x6a, 0xcb, 0xbe, 0x39, 0x4a, 0x4c, 0x58, 0xcf,
-    0xd0, 0xef, 0xaa, 0xfb, 0x43, 0x4d, 0x33, 0x85, 0x45, 0xf9, 0x02, 0x7f,
-    0x50, 0x3c, 0x9f, 0xa8, 0x51, 0xa3, 0x40, 0x8f, 0x92, 0x9d, 0x38, 0xf5,
-    0xbc, 0xb6, 0xda, 0x21, 0x10, 0xff, 0xf3, 0xd2, 0xcd, 0x0c, 0x13, 0xec,
-    0x5f, 0x97, 0x44, 0x17, 0xc4, 0xa7, 0x7e, 0x3d, 0x64, 0x5d, 0x19, 0x73,
-    0x60, 0x81, 0x4f, 0xdc, 0x22, 0x2a, 0x90, 0x88, 0x46, 0xee, 0xb8, 0x14,
-    0xde, 0x5e, 0x0b, 0xdb, 0xe0, 0x32, 0x3a, 0x0a, 0x49, 0x06, 0x24, 0x5c,
-    0xc2, 0xd3, 0xac, 0x62, 0x91, 0x95, 0xe4, 0x79, 0xe7, 0xc8, 0x37, 0x6d,
-    0x8d, 0xd5, 0x4e, 0xa9, 0x6c, 0x56, 0xf4, 0xea, 0x65, 0x7a, 0xae, 0x08,
-    0xba, 0x78, 0x25, 0x2e, 0x1c, 0xa6, 0xb4, 0xc6, 0xe8, 0xdd, 0x74, 0x1f,
-    0x4b, 0xbd, 0x8b, 0x8a, 0x70, 0x3e, 0xb5, 0x66, 0x48, 0x03, 0xf6, 0x0e,
-    0x61, 0x35, 0x57, 0xb9, 0x86, 0xc1, 0x1d, 0x9e, 0xe1, 0xf8, 0x98, 0x11,
-    0x69, 0xd9, 0x8e, 0x94, 0x9b, 0x1e, 0x87, 0xe9, 0xce, 0x55, 0x28, 0xdf,
-    0x8c, 0xa1, 0x89, 0x0d, 0xbf, 0xe6, 0x42, 0x68, 0x41, 0x99, 0x2d, 0x0f,
-    0xb0, 0x54, 0xbb, 0x16};
+// Shared memory: the round-key words, each warp's output words, then the
+// tables on the next 64 KB boundary of the shared window (the window's base
+// is the runtime's, so room for the largest gap is asked for).
+constexpr int kRowBytes = 256;  // 32 x Te0[x], 32 x Te2[x]
+constexpr int kTe2 = 128;       // byte offset of the Te2 copies in a row
+constexpr int kTableBytes = 256 * kRowBytes;
+constexpr int kKeyBytes = 256;  // 60 words, padded
+constexpr int kWordStride = 5;  // words a counter block and stream (4 + 1)
+constexpr int kStageWords = 2 * kSpan * kWordStride;  // a warp, both streams
+constexpr int kHeadBytes = kKeyBytes + 4 * kWarps * kStageWords;
+constexpr int kSmemBytes = kHeadBytes + 2 * kTableBytes;
+static_assert(kTableBytes == 1 << 16, "a row address is the table's with "
+                                      "byte 1 replaced");
 
-__device__ __forceinline__ uint32_t xtime(uint32_t a) {
-  return ((a << 1) ^ ((a >> 7) * 0x1bu)) & 0xffu;
+// A 32-bit load at byte address `addr` + OFFSET of the shared window.
+template <int OFFSET>
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm("ld.shared.u32 %0, [%1+%2];" : "=r"(v) : "r"(addr), "n"(OFFSET));
+  return v;
 }
 
-// AES-256 encrypt of the 16 state bytes s (byte i = row i%4 of column i/4).
-__device__ __forceinline__ void aes256_encrypt(const uint32_t* sbox,
-                                               const uint32_t* rk,
-                                               uint32_t s[16]) {
+// Address of this lane's copy in the table row of state byte ROW of s (row 0
+// is the most significant byte).  `tab` is the address of the lane's copy in
+// row 0, whose byte 1 is 0 because the tables lie on a 64 KB boundary of the
+// shared window: the row's address is tab with byte 1 replaced by the state
+// byte, one PRMT and no add.
+template <int ROW>
+__device__ __forceinline__ uint32_t row_addr(uint32_t s, uint32_t tab) {
+  return __byte_perm(s, tab, 0x7604 | ((3 - ROW) << 4));
+}
+
+// One column of a main round: SubBytes, ShiftRows (a, b, c, d are the state
+// words that rows 0..3 of this column come from), MixColumns, AddRoundKey.
+__device__ __forceinline__ uint32_t column(uint32_t tab, uint32_t a,
+                                           uint32_t b, uint32_t c, uint32_t d,
+                                           uint32_t k) {
+  const uint32_t ta = lds32<0>(row_addr<0>(a, tab));
+  const uint32_t tb = lds32<0>(row_addr<1>(b, tab));
+  const uint32_t tc = lds32<kTe2>(row_addr<2>(c, tab));
+  const uint32_t td = lds32<kTe2>(row_addr<3>(d, tab));
+  return ta ^ tc ^ k ^ __byte_perm(tb ^ td, 0, 0x0321);  // ror 8
+}
+
+// One column of the last round (no MixColumns): S(x) is byte 3 and byte 0 of
+// Te2[x] and byte 2 and byte 1 of Te0[x].
+__device__ __forceinline__ uint32_t last_column(uint32_t tab, uint32_t a,
+                                                uint32_t b, uint32_t c,
+                                                uint32_t d, uint32_t k) {
+  const uint32_t ta = lds32<kTe2>(row_addr<0>(a, tab));
+  const uint32_t tb = lds32<0>(row_addr<1>(b, tab));
+  const uint32_t tc = lds32<0>(row_addr<2>(c, tab));
+  const uint32_t td = lds32<kTe2>(row_addr<3>(d, tab));
+  const uint32_t hi = __byte_perm(ta, tb, 0x3600);  // ta.3, tb.2, -, -
+  const uint32_t lo = __byte_perm(tc, td, 0x0014);  // -, -, tc.1, td.0
+  return __byte_perm(hi, lo, 0x3254) ^ k;
+}
+
+template <bool LAST>
+__device__ __forceinline__ void aes_round(uint32_t tab, const uint4 k,
+                                          uint32_t s[4]) {
+  uint32_t t[4];
+  if (LAST) {
+    t[0] = last_column(tab, s[0], s[1], s[2], s[3], k.x);
+    t[1] = last_column(tab, s[1], s[2], s[3], s[0], k.y);
+    t[2] = last_column(tab, s[2], s[3], s[0], s[1], k.z);
+    t[3] = last_column(tab, s[3], s[0], s[1], s[2], k.w);
+  } else {
+    t[0] = column(tab, s[0], s[1], s[2], s[3], k.x);
+    t[1] = column(tab, s[1], s[2], s[3], s[0], k.y);
+    t[2] = column(tab, s[2], s[3], s[0], s[1], k.z);
+    t[3] = column(tab, s[3], s[0], s[1], s[2], k.w);
+  }
 #pragma unroll
-  for (int i = 0; i < 16; ++i) s[i] ^= rk[i];
+  for (int c = 0; c < 4; ++c) s[c] = t[c];
+}
+
+// AES-256 of (iter, add_idx, ctr) into a and of (iter, minus_idx, ctr) into
+// b, as column words: a[c] holds output bytes 4c .. 4c + 3, big-endian.  The
+// two blocks share every round-key load, and in the first round the lookups
+// of the three words they have in common.
+__device__ __forceinline__ void aes256_pair(uint32_t tab, const uint4* rk,
+                                            uint32_t iter, uint32_t add_idx,
+                                            uint32_t minus_idx, uint64_t ctr,
+                                            uint32_t a[4], uint32_t b[4]) {
+  uint4 k = rk[0];
+  a[0] = b[0] = iter ^ k.x;
+  a[1] = add_idx ^ k.y;
+  b[1] = minus_idx ^ k.y;
+  a[2] = b[2] = (uint32_t)(ctr >> 32) ^ k.z;
+  a[3] = b[3] = (uint32_t)ctr ^ k.w;
 #pragma unroll
   for (int r = 1; r < 14; ++r) {
-    uint32_t t[16];
-    // SubBytes + ShiftRows: t[row + 4c] = S(s[row + 4((c + row) % 4)])
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int row = i & 3, col = i >> 2;
-      t[i] = sbox[s[row + 4 * ((col + row) & 3)]];
-    }
-    // MixColumns + AddRoundKey
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const uint32_t a0 = t[4 * c], a1 = t[4 * c + 1], a2 = t[4 * c + 2],
-                     a3 = t[4 * c + 3];
-      const uint32_t x0 = xtime(a0), x1 = xtime(a1), x2 = xtime(a2),
-                     x3 = xtime(a3);
-      s[4 * c + 0] = x0 ^ x1 ^ a1 ^ a2 ^ a3 ^ rk[16 * r + 4 * c + 0];
-      s[4 * c + 1] = a0 ^ x1 ^ x2 ^ a2 ^ a3 ^ rk[16 * r + 4 * c + 1];
-      s[4 * c + 2] = a0 ^ a1 ^ x2 ^ x3 ^ a3 ^ rk[16 * r + 4 * c + 2];
-      s[4 * c + 3] = x0 ^ a0 ^ a1 ^ a2 ^ x3 ^ rk[16 * r + 4 * c + 3];
-    }
+    k = rk[r];
+    aes_round<false>(tab, k, a);
+    aes_round<false>(tab, k, b);
   }
-  uint32_t t[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int row = i & 3, col = i >> 2;
-    t[i] = sbox[s[row + 4 * ((col + row) & 3)]];
-  }
-#pragma unroll
-  for (int i = 0; i < 16; ++i) s[i] = t[i] ^ rk[224 + i];
+  k = rk[14];
+  aes_round<true>(tab, k, a);
+  aes_round<true>(tab, k, b);
 }
 
-// The 128-bit output of one counter block as words w[0] (least significant,
-// bytes 12..15 big-endian) .. w[3].
-__device__ __forceinline__ void counter_block(const uint32_t* sbox,
-                                              const uint32_t* rk,
-                                              uint32_t iter, uint32_t idx,
-                                              uint64_t ctr, uint32_t w[4]) {
-  uint32_t s[16];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    s[k] = (iter >> (24 - 8 * k)) & 0xffu;
-    s[4 + k] = (idx >> (24 - 8 * k)) & 0xffu;
-  }
-#pragma unroll
-  for (int k = 0; k < 8; ++k) s[8 + k] = (uint32_t)(ctr >> (56 - 8 * k)) & 0xffu;
-  aes256_encrypt(sbox, rk, s);
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    w[k] = (s[12 - 4 * k] << 24) | (s[13 - 4 * k] << 16) |
-           (s[14 - 4 * k] << 8) | s[15 - 4 * k];
-}
-
-// Shift the 128-bit value w right by m bits, 0 < m <= 32.  m == 32 is a
-// whole-word move: a C shift by 32 is undefined.
-__device__ __forceinline__ void shift_down(uint32_t w[4], int m) {
-  if (m == 32) {
-    w[0] = w[1];
-    w[1] = w[2];
-    w[2] = w[3];
-    w[3] = 0;
-  } else {
-    w[0] = (w[0] >> m) | (w[1] << (32 - m));
-    w[1] = (w[1] >> m) | (w[2] << (32 - m));
-    w[2] = (w[2] >> m) | (w[3] << (32 - m));
-    w[3] >>= m;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     flashe_mask_kernel(const uint32_t* __restrict__ q,
                        uint32_t* __restrict__ out, int64_t count,
-                       const int32_t* __restrict__ round_keys, uint32_t iter,
+                       const int32_t* __restrict__ round_keys,
+                       const uint32_t* __restrict__ te0, uint32_t iter,
                        uint32_t add_idx, uint32_t minus_idx, int int_bits,
-                       uint64_t base_block) {
-  __shared__ uint32_t sbox[256];
-  __shared__ uint32_t rk[240];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) sbox[i] = kSbox[i];
-  for (int i = threadIdx.x; i < 240; i += blockDim.x)
-    rk[i] = (uint32_t)round_keys[i] & 0xffu;
+                       uint64_t base_block, int64_t nspans, uint32_t magic) {
+  extern __shared__ __align__(256) unsigned char smem[];
+  const uint32_t window = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t gap = -(window + kHeadBytes) & (kTableBytes - 1);
+  // The tables: word e of the 256 x 64 is copy e % 32 of Te0 (e & 32 clear)
+  // or Te2 of x = e / 64.  A warp writes 32 neighbouring words.
+  uint32_t* tabw = reinterpret_cast<uint32_t*>(smem + kHeadBytes + gap);
+#pragma unroll 4
+  for (int e = threadIdx.x; e < kTableBytes / 4; e += kThreads) {
+    const uint32_t t = te0[e >> 6];
+    tabw[e] = (e & 32) ? __byte_perm(t, 0, 0x1032) : t;  // ror 16
+  }
+  // The round keys, (15, 16) byte values, as 60 big-endian words.
+  uint32_t* rkw = reinterpret_cast<uint32_t*>(smem);
+  if (threadIdx.x < 60) {
+    const int32_t* p = round_keys + 4 * threadIdx.x;
+    rkw[threadIdx.x] = ((uint32_t)p[0] & 0xffu) << 24 |
+                       ((uint32_t)p[1] & 0xffu) << 16 |
+                       ((uint32_t)p[2] & 0xffu) << 8 | ((uint32_t)p[3] & 0xffu);
+  }
   __syncthreads();
 
-  const int merge = 128 / int_bits;
-  const int64_t blk = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t first = blk * merge;
-  if (first >= count) return;
-
-  const uint64_t ctr = base_block + (uint64_t)blk;
-  uint32_t a[4], b[4];
-  counter_block(sbox, rk, iter, add_idx, ctr, a);
-  counter_block(sbox, rk, iter, minus_idx, ctr, b);
-
+  const uint4* rk = reinterpret_cast<const uint4*>(smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // this lane's copy in row 0: a multiple of 64 KB plus 4 * lane
+  const uint32_t tab = window + kHeadBytes + gap + 4 * lane;
+  uint32_t* wa = reinterpret_cast<uint32_t*>(smem + kKeyBytes) +
+                 warp * kStageWords;
+  uint32_t* wb = wa + kSpan * kWordStride;
+  const uint32_t merge = 128 / int_bits;
+  // m == 32 is a whole-word lane: a C shift by 32 is undefined
   const uint32_t mask = int_bits == 32 ? 0xffffffffu : (1u << int_bits) - 1u;
-  const int n = count - first < merge ? (int)(count - first) : merge;
-  for (int j = 0; j < n; ++j) {
-    out[first + j] = (q[first + j] + a[0] - b[0]) & mask;
-    shift_down(a, int_bits);
-    shift_down(b, int_bits);
+
+  // Span s belongs to warp s / gridDim.x % kWarps of block s % gridDim.x.
+  const int64_t stride = (int64_t)gridDim.x * kWarps;
+  for (int64_t span = (int64_t)warp * gridDim.x + blockIdx.x; span < nspans;
+       span += stride) {
+    const uint64_t ctr = base_block + (uint64_t)(span * kSpan + lane);
+    uint32_t a[4], b[4];
+    aes256_pair(tab, rk, iter, add_idx, minus_idx, ctr, a, b);
+    // w[0] (least significant, bytes 12..15) .. w[3]; the fifth word of a
+    // block is never written: a lane's bits end at or below bit 128
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      wa[lane * kWordStride + w] = a[3 - w];
+      wb[lane * kWordStride + w] = b[3 - w];
+    }
+    __syncwarp();
+    const int64_t lane0 = span * kSpan * merge;
+    for (uint32_t i = lane; i < kSpan * merge; i += 32) {
+      // lane i of the span: block i / merge (magic = 2^32 / merge, rounded
+      // up, exact for i < 4096), bits [bit, bit + m) of its 128
+      const uint32_t blk = __umulhi(i, magic);
+      const uint32_t bit = (i - blk * merge) * int_bits;
+      const uint32_t p = blk * kWordStride + (bit >> 5);
+      const uint32_t va = __funnelshift_r(wa[p], wa[p + 1], bit);
+      const uint32_t vb = __funnelshift_r(wb[p], wb[p + 1], bit);
+      const int64_t g = lane0 + i;
+      if (g < count) out[g] = (q[g] + va - vb) & mask;
+    }
+    __syncwarp();
   }
+}
+
+// Thread blocks of the kernel resident on the current device at once (SMs x
+// blocks an SM), asked of the runtime on the device's first launch and kept,
+// one slot a device (0: not yet asked).  The kernel's shared memory, above
+// 48 KB, is asked for first.  0 with *rc set if the kernel cannot be
+// resident.
+int64_t resident_blocks(int* rc) {
+  static std::atomic<int64_t> cache[kMaxDevices];
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev >= kMaxDevices) e = cudaErrorInvalidDevice;
+  if (e == cudaSuccess) {
+    const int64_t known = cache[dev].load(std::memory_order_acquire);
+    if (known > 0) return known;
+  }
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flashe_mask_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flashe_mask_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, flashe_mask_kernel, kThreads, kSmemBytes);
+  if (e == cudaSuccess && per_sm < 1) e = cudaErrorInvalidConfiguration;
+  if (e != cudaSuccess) {
+    *rc = (int)e;
+    return 0;
+  }
+  const int64_t resident = (int64_t)sms * per_sm;
+  cache[dev].store(resident, std::memory_order_release);
+  return resident;
 }
 
 }  // namespace
 
 // q, out: `count` int32 lanes on the device; round_keys: (15, 16) int32 on the
-// device; stream: a cudaStream_t.  Returns cudaGetLastError() after the
-// launch (0 on success).
+// device; stream: a cudaStream_t; te0: the 256 words Te0[x] = (2 S(x), S(x),
+// S(x), 3 S(x)), most significant byte first, on the device.  Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int flashe_mask_apply(const void* q, void* out, int64_t count,
                                  const void* round_keys, int iter_index,
                                  int add_idx, int minus_idx, int int_bits,
-                                 int64_t base_block, void* stream) {
-  if (int_bits < 1 || int_bits > 32) return (int)cudaErrorInvalidValue;
+                                 int64_t base_block, void* stream,
+                                 const void* te0) {
+  if (int_bits < 1 || int_bits > 32 || te0 == nullptr)
+    return (int)cudaErrorInvalidValue;
   if (count <= 0) return (int)cudaSuccess;
-  const int merge = 128 / int_bits;
+  int rc = (int)cudaSuccess;
+  const int64_t resident = resident_blocks(&rc);
+  if (resident == 0) return rc;
+  const int64_t merge = 128 / int_bits;
   const int64_t nblocks = (count + merge - 1) / merge;
-  const int64_t grid = (nblocks + kThreads - 1) / kThreads;
-  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  flashe_mask_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+  const int64_t nspans = (nblocks + kSpan - 1) / kSpan;
+  const int64_t grid = nspans < resident ? nspans : resident;
+  flashe_mask_kernel<<<(unsigned)grid, kThreads, kSmemBytes,
+                       (cudaStream_t)stream>>>(
       (const uint32_t*)q, (uint32_t*)out, count, (const int32_t*)round_keys,
-      (uint32_t)iter_index, (uint32_t)add_idx, (uint32_t)minus_idx, int_bits,
-      (uint64_t)base_block);
+      (const uint32_t*)te0, (uint32_t)iter_index, (uint32_t)add_idx,
+      (uint32_t)minus_idx, int_bits, (uint64_t)base_block, nspans,
+      0xffffffffu / (uint32_t)merge + 1u);
   return (int)cudaGetLastError();
+}
+
+// Counter blocks a warp makes at a time: its span is this many x merge lanes.
+extern "C" int flashe_mask_span_blocks(void) { return kSpan; }
+
+// Counter blocks one pass of the resident grid covers on the current device
+// (resident threads); minus the CUDA error if the kernel cannot be resident.
+extern "C" int64_t flashe_mask_pass_blocks(void) {
+  int rc = (int)cudaSuccess;
+  const int64_t resident = resident_blocks(&rc);
+  return resident == 0 ? -(int64_t)rc : resident * kThreads;
 }

@@ -5,12 +5,14 @@ entry point.  At first use it is compiled with nvcc for sm_90a into a shared
 library under build/flashe_tpu_torch/ at the repository root and loaded with
 ctypes.  The library's file name carries a hash of the source and the flags,
 so an edited source is rebuilt.  The compiler's messages, ptxas's registers and spills of
-every kernel among them, are kept beside the library (`build_log`).
-Nothing here runs at import time.
+every kernel among them, are kept beside the library (`build_log`);
+`sass_opcodes` counts the instructions of what was built, where the toolkit's
+cuobjdump is at hand.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -21,7 +23,7 @@ import subprocess
 from pathlib import Path
 
 __all__ = ["NVCC_FLAGS", "build_dir", "nvcc_path", "compile_so", "load",
-           "build_log", "ptxas_usage"]
+           "build_log", "ptxas_usage", "sass_opcodes", "count_sass"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc"
@@ -112,3 +114,31 @@ def ptxas_usage(log: str):
             rows.append((name, int(m.group(1)), *spills))
             name, spills = None, (0, 0)
     return sorted(rows)
+
+
+def count_sass(sass: str):
+    """{kernel: Counter of opcodes, modifiers cut (`LDS.128` counts as
+    `LDS`)} from the text of cuobjdump -sass."""
+    out, ops = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            ops = out.setdefault(_kernel_name(m.group(1)),
+                                 collections.Counter())
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                     line)
+        if m and ops is not None:
+            ops[m.group(1)] += 1
+    return out
+
+
+def sass_opcodes(name: str):
+    """count_sass of the library of csrc/<name>.cu (after load(name)), or
+    None where there is no cuobjdump beside nvcc."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    if not tool.is_file():
+        return None
+    res = subprocess.run([str(tool), "-sass", str(_lib_path(name))],
+                         capture_output=True, text=True)
+    return count_sass(res.stdout) if res.returncode == 0 else None

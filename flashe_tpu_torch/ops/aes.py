@@ -7,6 +7,11 @@ table-lookup S-box: the reference that the CUDA mask kernel
 (flashe_tpu_torch/csrc/flashe_mask.cu) is checked against.  The JAX
 package's gather-free Boyar-Peralta circuit is a TPU choice and is not
 ported.
+
+The kernel itself runs a T-table AES on big-endian column words.  Its one
+table is made here, `te0_words`, and uploaded by the kernel's wrapper;
+`aes_encrypt_blocks_ttable` is the same round structure in plain torch, which
+the tests hold against `aes_encrypt_blocks`, FIPS-197 and the JAX package.
 """
 
 from __future__ import annotations
@@ -14,7 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["SBOX", "key_schedule", "aes_encrypt_blocks"]
+__all__ = ["SBOX", "key_schedule", "aes_encrypt_blocks", "te0_words",
+           "aes_encrypt_blocks_ttable"]
 
 
 def _gf_mul(a: int, b: int) -> int:
@@ -121,3 +127,49 @@ def aes_encrypt_blocks(blocks: torch.Tensor, round_keys) -> torch.Tensor:
         state = sbox[state][..., shift]
         state = _mix_columns(state) ^ rk[r]
     return sbox[state][..., shift] ^ rk[14]
+
+
+def te0_words() -> np.ndarray:
+    """The T-table of SubBytes + MixColumns for a row-0 byte: 256 uint32,
+    Te0[x] = (2 S(x), S(x), S(x), 3 S(x)), most significant byte first.
+    The tables of rows 1-3 are Te0 rotated right by 8, 16 and 24 bits."""
+    s = SBOX.astype(np.uint32)
+    s2 = ((s << 1) ^ (0x1B * (s >> 7))) & 0xFF
+    return (s2 << 24) | (s << 16) | (s << 8) | (s2 ^ s)
+
+
+def _ror(x: torch.Tensor, n: int) -> torch.Tensor:
+    return ((x >> n) | (x << (32 - n))) & 0xFFFFFFFF
+
+
+def aes_encrypt_blocks_ttable(cols: torch.Tensor, round_keys) -> torch.Tensor:
+    """AES-256-ECB on column words, round for round as the CUDA mask kernel
+    computes it.
+
+    cols: (..., 4) integer words, word c = bytes 4c .. 4c + 3 of the block,
+    big-endian; round_keys: (15, 16) round keys.  Returns (..., 4) int64
+    words of the same layout.  A main round's column c is
+    Te0[s_c >> 24] ^ Te2[(s_c+2 >> 8) & 255] ^ rk
+    ^ ror8(Te0[(s_c+1 >> 16) & 255] ^ Te2[s_c+3 & 255]) with Te2 = ror16(Te0);
+    the last round takes S(x) from the tables' own bytes.
+    """
+    dev = cols.device
+    te0 = torch.as_tensor(te0_words().astype(np.int64), device=dev)
+    te2 = _ror(te0, 16)
+    rk = torch.as_tensor(round_keys).to(dev, torch.int64) & 0xFF
+    rkw = (rk[:, 0::4] << 24) | (rk[:, 1::4] << 16) | (rk[:, 2::4] << 8) \
+        | rk[:, 3::4]  # (15, 4) big-endian words
+    s = [(cols[..., c].to(torch.int64) & 0xFFFFFFFF) ^ rkw[0, c]
+         for c in range(4)]
+    for r in range(1, 14):
+        s = [te0[s[c] >> 24] ^ te2[(s[(c + 2) % 4] >> 8) & 0xFF] ^ rkw[r, c]
+             ^ _ror(te0[(s[(c + 1) % 4] >> 16) & 0xFF]
+                    ^ te2[s[(c + 3) % 4] & 0xFF], 8)
+             for c in range(4)]
+    # S(x) is byte 3 and byte 0 of Te2[x], byte 2 and byte 1 of Te0[x]
+    out = [((te2[s[c] >> 24] & 0xFF000000)
+            | (te0[(s[(c + 1) % 4] >> 16) & 0xFF] & 0x00FF0000)
+            | (te0[(s[(c + 2) % 4] >> 8) & 0xFF] & 0x0000FF00)
+            | (te2[s[(c + 3) % 4] & 0xFF] & 0x000000FF)) ^ rkw[14, c]
+           for c in range(4)]
+    return torch.stack(out, dim=-1)

@@ -3,8 +3,9 @@
 `mask_apply` computes (q + stream(add_idx) - stream(minus_idx)) mod 2^m over
 int32 lanes.  On a CUDA tensor it launches the hand-written kernel of
 flashe_tpu_torch/csrc/flashe_mask.cu, which generates both AES-256-CTR mask
-streams in registers and never writes them to device memory; a failed build
-or launch raises.  On a CPU tensor it runs the plain torch version,
+streams on chip (a T-table AES on column words, its table `aes.te0_words()`
+uploaded once a device) and never writes them to device memory; a failed
+build or launch raises.  On a CPU tensor it runs the plain torch version,
 `mask_apply_ref`, which the tests hold against the JAX package.  `launches`
 counts the kernel's launches.
 """
@@ -16,11 +17,12 @@ import functools
 
 import torch
 
-from flashe_tpu_torch.ops import _build
+from flashe_tpu_torch.ops import _build, aes
 from flashe_tpu_torch.ops.lanes import lane_add, lane_sub, nlimbs_for
 from flashe_tpu_torch.ops.masks import prp_lane_stream
 
-__all__ = ["mask_apply", "mask_apply_ref", "encrypt", "decrypt", "launches"]
+__all__ = ["mask_apply", "mask_apply_ref", "encrypt", "decrypt", "layout",
+           "launches"]
 
 launches = 0
 
@@ -42,9 +44,33 @@ def _kernel():
     fn = _build.load("flashe_mask").flashe_mask_apply
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _te0(device: torch.device) -> torch.Tensor:
+    """The kernel's table on `device`, uploaded once and kept."""
+    t = torch.from_numpy(aes.te0_words().view("int32")).to(device)
+    torch.cuda.synchronize(device)
+    return t
+
+
+def layout():
+    """(counter blocks a warp makes at a time, counter blocks one pass of
+    the kernel's resident grid covers on the current device), as the built
+    library reports them: times 128 // int_bits, the lane counts at which
+    the kernel's work changes shape."""
+    lib = _build.load("flashe_mask")
+    lib.flashe_mask_pass_blocks.restype = ctypes.c_int64
+    span, one_pass = (lib.flashe_mask_span_blocks(),
+                      lib.flashe_mask_pass_blocks())
+    if one_pass <= 0:
+        raise RuntimeError("the flashe_mask kernel cannot be resident: CUDA "
+                           f"error {-one_pass}")
+    return span, one_pass
 
 
 def _launch(q: torch.Tensor, rk: torch.Tensor, iter_index, add_idx, minus_idx,
@@ -67,7 +93,8 @@ def _launch(q: torch.Tensor, rk: torch.Tensor, iter_index, add_idx, minus_idx,
     rc = _kernel()(q.data_ptr(), out.data_ptr(), q.numel(), rk.data_ptr(),
                    int(iter_index), int(add_idx), int(minus_idx), int_bits,
                    int(base_block),
-                   torch.cuda.current_stream(q.device).cuda_stream)
+                   torch.cuda.current_stream(q.device).cuda_stream,
+                   _te0(q.device).data_ptr())
     if rc != 0:
         raise RuntimeError(f"flashe_mask kernel launch failed: CUDA error {rc}")
     launches += 1

@@ -26,6 +26,7 @@ __all__ = [
     "num_blocks",
     "index_blocks",
     "lanes_from_blocks",
+    "lanes_from_words",
     "prp_lane_stream",
     "reference_mask_stream_host",
 ]
@@ -89,6 +90,28 @@ def lanes_from_blocks(out_bytes: torch.Tensor, int_bits: int) -> torch.Tensor:
         limbs[-1] = limbs[-1] & top_mask
         lanes.append(torch.stack(limbs, dim=-1))  # (N, L)
     return to_i32(torch.stack(lanes, dim=1).reshape(n * merge, nl))
+
+
+def lanes_from_words(cols: torch.Tensor, int_bits: int) -> torch.Tensor:
+    """LSB-first lanes (int_bits <= 32) of AES output column words, cut as
+    the CUDA mask kernel cuts them: lane i of the run lies in block
+    i // merge at bit (i % merge) * int_bits of its 128, in 32-bit word
+    bit // 32 (word 0 the least significant, column 3) and, where it
+    straddles, the next word: a funnel shift of the two.
+
+    cols: (N, 4) words, word c = bytes 4c .. 4c + 3 of the block,
+    big-endian.  Returns (N * merge,) int32.
+    """
+    if nlimbs_for(int_bits) != 1:
+        raise ValueError("lanes_from_words takes int_bits <= 32")
+    n, merge = cols.shape[0], merge_size(int_bits)
+    w = torch.cat([cols.to(torch.int64).flip(-1) & _U32,
+                   torch.zeros((n, 1), dtype=torch.int64,
+                               device=cols.device)], dim=-1)  # (N, 5)
+    i = torch.arange(n * merge, device=cols.device)
+    blk, bit = i // merge, (i % merge) * int_bits
+    lo, hi = w[blk, bit >> 5], w[blk, (bit >> 5) + 1]
+    return to_i32(((lo | (hi << 32)) >> (bit & 31)) & ((1 << int_bits) - 1))
 
 
 def prp_lane_stream(round_keys, iter_index: int, stream_idx: int, count: int,

@@ -70,6 +70,17 @@ def test_mask_bound_is_its_table_loads():
     assert 0.0107 < ms < 0.0108
 
 
+@pytest.mark.parametrize("m, want", [
+    (20, (191, 193, 811_007, 811_009)), (32, (127, 129, 540_671, 540_673)),
+    (1, (4095, 4097, 17_301_503, 17_301_505))])
+def test_mask_grid_counts_straddle_a_span_and_a_pass(m, want):
+    # a warp's span of 32 counter blocks and a pass of 132 x 1,024, in lanes
+    counts = chip_smoke.grid_counts(m, 32, 135_168)
+    assert counts[:len(chip_smoke.GRID_COUNTS)] == chip_smoke.GRID_COUNTS
+    assert counts[len(chip_smoke.GRID_COUNTS):] == want
+    assert any(c % (128 // m) for c in counts)
+
+
 _PTXAS = """\
 ptxas info    : Compiling entry function '_ZN43_INTERNAL_x_mont_mul15mont_exp_kernelILi16ELi4EEEvPKjPKiS2_' for 'sm_90a'
 ptxas info    : Function properties for _ZN43_INTERNAL_x_mont_mul15mont_exp_kernelILi16ELi4EEEvPKjPKiS2_
@@ -94,6 +105,37 @@ def test_ptxas_usage():
     ("_Z3foov", "_Z3foov")])
 def test_kernel_names(mangled, want):
     assert _build._kernel_name(mangled) == want
+
+
+_SASS = """\
+Fatbin elf code:
+================
+arch = sm_90a
+
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_118flashe_mask_kernelEPKjPjlPKiS1_jjjimlj
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                       /* 0x00000a00ff017b82 */
+                                                                                 /* 0x000e220000000800 */
+        /*0010*/                   S2R R3, SR_TID.X ;                           /* 0x0000000000037919 */
+        /*0d90*/                   LDS R36, [R36] ;                             /* 0x0000000024247984 */
+        /*0fb0*/                   LDS.128 R16, [R6+0x10020] ;                  /* 0x0100200006107984 */
+        /*10e0*/                   PRMT R26, R6.reuse, 0x7614, R26 ;            /* 0x00000001061a7824 */
+        /*04d0*/              @!P1 LDG.E.CONSTANT R0, desc[UR6][R4.64+0xc] ;    /* 0x00000c0604009981 */
+        /*0500*/               @P0 BRA 0x120 ;                                  /* 0x00000c0604009981 */
+        /*0510*/              @UP0 UMOV UR4, 0x400 ;                            /* 0x00000c0604009981 */
+\t\tFunction : _ZN12_GLOBAL__N_115mont_mul_kernelILi8ELi2EEEvPKjS2_S2_jPjli
+        /*0000*/                   IMAD.WIDE.U32.X R4, R5, 0x4, R6 ;            /* 0x0000000405047825 */
+"""
+
+
+def test_count_sass():
+    got = _build.count_sass(_SASS)
+    assert got == {
+        "flashe_mask_kernel": {"LDC": 1, "S2R": 1, "LDS": 2, "PRMT": 1,
+                               "LDG": 1, "BRA": 1, "UMOV": 1},
+        "mont_mul_kernel<8,2>": {"IMAD": 1}}
+    assert _build.count_sass("") == {}
 
 
 @pytest.mark.parametrize("L", [0, montgomery.MAX_LIMBS + 1])
