@@ -13,7 +13,14 @@ Phases, each of which fails the run:
      are no multiple of the lanes a block, offsets whose low counter word
      wraps and that are negative as int64; plus the FIPS-197 AES-256
      vector and golden lanes from the `cryptography` AES;
-  3. one FLASHE round of FemnistCNN at full width (1,206,590 lanes) with 10
+  3. hold the kernel's other modes against their plain versions on the
+     card, bit-exact: one stream alone (the single mask's add and minus)
+     at int_bits 1 to 32, and multi-limb lanes at int_bits 33 to 128 with
+     both streams and with each alone, on the same grid of counts and
+     counter offsets; the sparse decrypt's in-place scatter, with the minus
+     stream alone and with both, at location sets that are empty, of one
+     element, dense and random at 10% of 1,206,590 lanes;
+  4. one FLASHE round of FemnistCNN at full width (1,206,590 lanes) with 10
      clients, int_bits 20, element_bits 16, the secure ACIQ quantizer and
      the double mask, through client_upload / arbiter_reduce /
      client_download; then the same round with client 9 dropped.  The
@@ -21,7 +28,19 @@ Phases, each of which fails the run:
      2^20, the new global model must lie within one quantization step of
      the clients' mean, and the launch counter must show that every encrypt
      and decrypt went through the kernel;
-  4. hold the three Montgomery kernels against their plain versions,
+  5. the sparsified rounds of FemnistCNN at full width with 10 clients and
+     top-10% selection by layer (120,655 compact lanes a client), int_bits
+     20: path S (examples/configs/cnn_flashe_s100_dyn.json, dynamic
+     masking, which must choose the single mask; two iterations, so that
+     the residual memory is used), path D (the same with mask "double";
+     the second round drops client 9); and path B, the batched 120-bit round
+     (examples/configs/cnn_flashe_q16_b6_pad.json: 201,099 lanes of six
+     20-bit fields, 4 limbs each, precompute on) and its dropout round.
+     Decrypted lanes must equal the survivors' (densified) quantized sums
+     mod 2^m, the new model must lie within one quantization step of what
+     the clients sent, and the launch counters must show the path's
+     launches of each mode;
+  6. hold the three Montgomery kernels against their plain versions,
      bit-exact: moduli of 32 to 4096 bits, at the limb counts L on each
      side of every boundary of the kernels' (threads a row, limbs a
      thread) dispatch, so that every kernel instance runs, and three with
@@ -29,7 +48,7 @@ Phases, each of which fails the run:
      not a multiple of the rows a warp holds among them), operands 0, 1
      and n - 1; the fused modexp with 64-bit exponents, and with the full
      1024-bit CRT exponents of a 2048-bit key against python pow;
-  5. one Paillier round of FemnistCNN at full width with 10 clients under
+  7. one Paillier round of FemnistCNN at full width with 10 clients under
      that key (examples/configs/cnn_paillier_q16_b100_pad.json: int_bits
      2000, batch packing, element_bits 16): 12,066 ciphertexts a client,
      the arbiter's product, client 0's CRT decrypt and decode.  The
@@ -37,7 +56,7 @@ Phases, each of which fails the run:
      the clients' packed q exactly, the new model the clients' mean within
      one quantization step, and the launch counters the kernels' share of
      the path; then a 5-row decrypt, which takes the single-product route;
-  6. timings with CUDA events over runs of launches (printed, not
+  8. timings with CUDA events over runs of launches (printed, not
      asserted), at the shapes the paths run: mont_mul at one encrypt's
      12,066 rows x 4096 bits (checked against its plain version there),
      mont_exp_rows at the decrypt's 24,132 rows x 2048 bits with the key's
@@ -45,22 +64,27 @@ Phases, each of which fails the run:
      5-row decrypt's 10 rows, the mask kernel at the round's lanes and at
      4,194,304 (a call over CUDA graphs of calls, which the host's launch
      rate does not hold back, and over runs of calls from the host); each
-     beside its bound (flashe_tpu_torch/tools/roofline.py); then the Montgomery
-     kernels again at 2,048 rows.
+     beside its bound (flashe_tpu_torch/tools/roofline.py); the mask
+     kernel's other modes at their paths' shapes (one stream at 120,655
+     lanes, the scatter at 120,655 locations in 1,206,590 lanes, 120-bit
+     limbs at 201,099 lanes), over CUDA graphs and over host calls; the
+     sparse round by phase; then the Montgomery kernels again at 2,048
+     rows.
 It prints ptxas's registers and spills of every kernel instance after the
 build and, where the toolkit has cuobjdump, the mask kernel's instruction
 counts; the kernels' JSON line and the card's name and power limit, then as
 its last line {"ok": true, "device": {...}}.  Without a CUDA device it
 exits non-zero and prints no result.
 
-    python3 chip_smoke.py --times   # phases 1 and 6 only
+    python3 chip_smoke.py --times   # phases 1 and 8 only
 
 times the mask kernel and the Montgomery kernels at their paths' shapes
 beside their bounds and prints no result line: run in a copy of the tree
 whose csrc/flashe_mask.cu or csrc/montgomery.cu is an older one (same C
 entry points; an older flashe_mask_apply does not read the table pointer
 that the wrapper passes last), it times that source in the same call as
-this one.
+this one.  The other modes are timed where the library has their entry
+point, flashe_mask_apply_modes.
 """
 
 from __future__ import annotations
@@ -86,8 +110,11 @@ from flashe_tpu_torch.ops import flashe_mask as fm
 from flashe_tpu_torch.ops import montgomery as mg
 from flashe_tpu_torch.ops import quantize as qops
 from flashe_tpu_torch.protocol.aggregator import (
-    ClientBlock, arbiter_reduce, client_download, client_upload)
+    ClientBlock, arbiter_reduce, client_download, client_select,
+    client_upload, client_upload_sparse)
 from flashe_tpu_torch.protocol.blocks import paillier as pblocks
+from flashe_tpu_torch.protocol.blocks.flashe import arbiter_masking
+from flashe_tpu_torch.protocol.sparsify import Sparsifier, decode_locations
 from flashe_tpu_torch.quant.quantizer import QuantizingClient
 from flashe_tpu_torch.tools import roofline
 
@@ -104,6 +131,17 @@ N_FEMNIST = 1_206_590
 # counter block, one 32-block span on each of 132 SMs, 1,024 blocks on each
 MASK_SMALL_COUNTS = (6, 25_344, 811_008)
 KERNEL_SOURCES = ("flashe_mask", "montgomery")
+# the mask kernel's other modes: (add, minus) streams of their grids
+SINGLE_STREAMS = ((2, None), (None, 7))
+LIMB_INT_BITS = (33, 40, 63, 64, 65, 96, 120, 127, 128)
+LIMB_STREAMS = ((2, 7), (2, None), (None, 7))
+SCATTER_BASES = (0, 2**32 - 2)
+# the sparse rounds: top-10% by layer keeps sum max(1, floor(0.1 size)) =
+# 120,655 of FemnistCNN's 1,206,590 parameters a client
+SPARSITY, N_COMPACT = 0.1, 120_655
+# the batched 120-bit round (examples/configs/cnn_flashe_q16_b6_pad.json):
+# factor ceil(log2 10) = 4, six fields of 20 bits a lane, precompute on
+B_BITS, B_FACTOR, B_LANES, B_PARAMS = 120, 4, 201_099, 201_101
 
 # the Paillier configuration, examples/configs/cnn_paillier_q16_b100_pad.json
 PAILLIER_ARGS = {"key_length": 2048, "quantize": {
@@ -125,7 +163,10 @@ MONT_ROWS = (0, 1, 5, 8, 129, 2048)
 # bytes.  Loads bind: 224 / 32 a clock against 348 / 64.
 AES_TTABLE_INT_OPS = 348
 AES_TTABLE_LOADS = 224
-LANE_OPS = 6  # a lane's extract, mask, add, subtract, mask and select
+# a lane's integer operations, for each limb: an extract and an add or
+# subtract for each stream, a mask and a select (6 for the double mask)
+def lane_ops(streams: int) -> int:
+    return 2 * streams + 2
 
 # FIPS-197 appendix C.3: AES-256, key 00 01 .. 1f
 FIPS_PT = "00112233445566778899aabbccddeeff"
@@ -224,14 +265,84 @@ def check_kernel_grid(dev):
     return max_err
 
 
-def make_clients(dev, codec, n):
+def _rand_lanes(gen, dev, count, m):
+    """count random lanes of m bits: (count,) int32, or (count, L) limbs."""
+    nl = lanes.nlimbs_for(m)
+    shape = (count,) if nl == 1 else (count, nl)
+    q = lanes.to_i32(torch.randint(0, 1 << 32, shape, generator=gen,
+                                   device=dev, dtype=torch.int64))
+    return q & lanes.lane_mask(m).to(dev)
+
+
+def check_modes_grid(dev):
+    """The kernel's other modes against their plain versions on the card,
+    bit-exact; returns the max error of each mode."""
+    rk = round_keys(dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 4)
+    span, one_pass = fm.layout()
+    err = {"single": 0, "limbs": 0, "scatter": 0}
+    cases = ([("single", m, st) for m in GRID_INT_BITS
+              for st in SINGLE_STREAMS]
+             + [("limbs", m, st) for m in LIMB_INT_BITS
+                for st in LIMB_STREAMS])
+    for mode, m, (add, minus) in cases:
+        t0, n_ok = time.perf_counter(), 0
+        for count in grid_counts(m, span, one_pass):
+            q = _rand_lanes(gen, dev, count, m)
+            for base in GRID_BASES:
+                what = (f"{mode} int_bits={m} add={add} minus={minus} "
+                        f"count={count} base_block={base}")
+                err[mode] = max(err[mode], _same(
+                    "mask kernel", fm.mask_apply(q, rk, 3, add, minus, m,
+                                                 base_block=base),
+                    fm.mask_apply_ref(q, rk, 3, add, minus, m,
+                                      base_block=base), what))
+                n_ok += 1
+            del q
+        print(f"grid {mode} int_bits={m} streams (add {add}, minus {minus}): "
+              f"{n_ok} (count, base_block) cases bit-exact against the plain "
+              f"version ({time.perf_counter() - t0:.1f} s)")
+    # the scatter into a full-width aggregate
+    n = N_FEMNIST
+    loc_sets = {
+        "empty": torch.zeros(0, dtype=torch.int64, device=dev),
+        "one element (the last)": torch.tensor([n - 1], device=dev),
+        "dense": torch.arange(n, device=dev),
+        "random 10%": torch.sort(torch.randperm(
+            n, generator=gen, device=dev)[:n // 10]).values}
+    for m in GRID_INT_BITS:
+        t0, n_ok = time.perf_counter(), 0
+        agg = _rand_lanes(gen, dev, n, m)
+        for name, loc in loc_sets.items():
+            for add in (None, 8):
+                for base in SCATTER_BASES:
+                    got = fm.mask_scatter(agg.clone(), loc, rk, 3, add, 7, m,
+                                          base_block=base)
+                    want = fm.mask_scatter_ref(agg.clone(), loc, rk, 3, add,
+                                               7, m, base_block=base)
+                    err["scatter"] = max(err["scatter"], _same(
+                        "mask kernel", got, want, f"scatter int_bits={m} "
+                        f"{name} add={add} base_block={base}"))
+                    n_ok += 1
+        print(f"grid scatter int_bits={m}: {n_ok} (locations {list(loc_sets)}"
+              f", minus stream alone and both, base_block {SCATTER_BASES}) "
+              f"cases bit-exact against the plain version "
+              f"({time.perf_counter() - t0:.1f} s)")
+    return err
+
+
+def make_clients(dev, codec, n, int_bits=INT_BITS, batch=False,
+                 mask="double"):
+    """n client blocks; mask "dynamic" starts on the double mask, as the
+    JAX package's blocks do, until the arbiter's choice arrives."""
     blocks = []
     for i in range(n):
-        c = FlasheCipher(INT_BITS, device=dev)
+        c = FlasheCipher(int_bits, mask="double" if mask == "dynamic"
+                         else mask, device=dev)
         c.idx = i
         c.set_num_clients(n)
         c.generate_prp_seed(assigned_seed=SEED)
-        q = QuantizingClient(INT_BITS, False, ELEMENT_BITS, True, True,
+        q = QuantizingClient(int_bits, batch, ELEMENT_BITS, True, True,
                              seed=i, device=dev)
         q.set_num_clients(n)
         q.set_codec(codec)
@@ -247,29 +358,188 @@ def client_flats(dev, codec, model, n):
             for _ in range(n)]
 
 
-def run_round(dev, model, survivors, it):
+def reset_launches():
+    """Set the mask kernel's launch counters to 0."""
+    fm.launches = 0
+    for k in fm.mode_launches:
+        fm.mode_launches[k] = 0
+
+
+def run_round(dev, model, survivors, it, int_bits=INT_BITS, batch=False):
     """One round: every client uploads, the arbiter sums the survivors'
     ciphertexts (the others missed the deadline), client 0 downloads.
-    Returns the kernel launches of the round, its host time and what the
-    checks need."""
+    With batch (path B) the clients precompute as the configuration asks,
+    which is a no-op.  Returns the kernel launches of the round by mode,
+    its host time and what the checks need."""
     codec = WeightsCodec(model.params_to_flax(), device=dev)
-    blocks = make_clients(dev, codec, N_CLIENTS)
+    blocks = make_clients(dev, codec, N_CLIENTS, int_bits, batch)
     flats = client_flats(dev, codec, model, N_CLIENTS)
 
     torch.cuda.synchronize()
-    fm.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
+    if batch:
+        for b in blocks:  # the precompute bootstrap of the configuration
+            b.cipher.set_num_params(B_PARAMS)
+            b.cipher.prepare_encrypt()
     ups = [client_upload(blocks[i], codec, flats[i], it)
            for i in range(N_CLIENTS)]
-    agg = arbiter_reduce([ups[i].lanes for i in survivors], INT_BITS)
+    agg = arbiter_reduce([ups[i].lanes for i in survivors], int_bits)
     idx_list = [j for i in survivors for j in ups[i].idx_list]
     new = client_download(blocks[0], agg, idx_list, codec.total,
                           sum(ups[i].degree for i in survivors))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return fm.launches, seconds, dict(codec=codec, blocks=blocks, flats=flats,
-                                      ups=ups, agg=agg, idx_list=idx_list,
-                                      new=new)
+    return dict(fm.mode_launches), seconds, dict(
+        codec=codec, blocks=blocks, flats=flats, ups=ups, agg=agg,
+        idx_list=idx_list, new=new)
+
+
+def run_sparse_round(dev, codec, state, before, survivors, it, mask):
+    """One sparsified round (paths S and D): every client selects its
+    top-10% and sends the encoded locations, the arbiter broadcasts its
+    masking choice, every client uploads its compacted ciphertexts and
+    filler, the arbiter densifies and sums the survivors', client 0
+    downloads.  The other clients would decode the same aggregate into the
+    same model, so their layer statistics are copied from client 0's.
+    Returns the launches by mode, the host seconds of each phase and what
+    the checks need."""
+    blocks, sparsifiers = state["blocks"], state["sparsifiers"]
+    gen = torch.Generator(dev).manual_seed(SEED + 10 + it)
+    flats = [before + 0.01 * torch.randn(before.shape, generator=gen,
+                                         device=dev)
+             for _ in range(N_CLIENTS)]
+    quant0 = blocks[0].quantizer
+    past_mean = quant0.past_mean.copy()
+    secs = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    sels = [client_select(b, sp, f, before)
+            for b, sp, f in zip(blocks, sparsifiers, flats)]
+    torch.cuda.synchronize()
+    secs["select + encode x 10"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    masks = [decode_locations(s.encoded) for s in sels]
+    secs["decode x 10"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    broadcast = arbiter_masking(masks, codec.total, mask, device=dev)
+    secs["masking choice"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ups = [client_upload_sparse(b, s, broadcast, it)
+           for b, s in zip(blocks, sels)]
+    torch.cuda.synchronize()
+    secs["install + quantize + encrypt x 10"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    agg = arbiter_reduce([ups[i].lanes for i in survivors], INT_BITS,
+                         masks=[masks[i] for i in survivors],
+                         total=codec.total)
+    torch.cuda.synchronize()
+    secs["densify + sum"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx_list = [j for i in survivors for j in ups[i].idx_list]
+    new = client_download(blocks[0], agg, idx_list, codec.total,
+                          sum(ups[i].degree for i in survivors),
+                          before=before)
+    torch.cuda.synchronize()
+    secs["decrypt + decode"] = time.perf_counter() - t0
+    launches = dict(fm.mode_launches)
+    for b in blocks[1:]:
+        b.quantizer.past_mean = quant0.past_mean.copy()
+        b.quantizer.past_std = quant0.past_std.copy()
+    return launches, secs, dict(
+        codec=codec, blocks=blocks, sels=sels, masks=masks,
+        broadcast=broadcast, ups=ups, agg=agg, idx_list=idx_list, new=new,
+        before=before, past_mean=past_mean, alpha=quant0.alpha.copy())
+
+
+def check_sparse_round(dev, survivors, it, r):
+    """Decrypted lanes == the survivors' densified q, summed mod 2^20; the
+    new model within one quantization step of what the clients sent:
+    before + the layer means + the mean of the clipped normalized values
+    at each client's locations (its filler, quantized 0, elsewhere)."""
+    codec, blocks, ups = r["codec"], r["blocks"], r["ups"]
+    rk = blocks[0].cipher._round_keys
+    double = r["broadcast"]["choice"] == "double"
+    total = codec.total
+    want = torch.zeros(total, dtype=torch.int64, device=dev)
+    sent = torch.zeros(total, dtype=torch.float32, device=dev)
+    mean = codec.spread(torch.as_tensor(r["past_mean"], device=dev))
+    alpha = codec.spread(torch.as_tensor(r["alpha"], device=dev))
+    for i in survivors:
+        loc = torch.as_tensor(r["masks"][i], device=dev)
+        # client i's q, recovered with the plain version of its streams
+        q = fm.mask_apply_ref(ups[i].lanes[:-1], rk, it,
+                              i + 1 if double else None, i, INT_BITS)
+        zero = lanes.as_u32(ups[i].lanes[-1:])
+        # a value clipped at +alpha may round up to 2^16
+        if int(q.min()) < 0 or int(q.max()) > 1 << ELEMENT_BITS or not (
+                0 <= int(zero) < 1 << ELEMENT_BITS):
+            raise AssertionError(f"client {i}: a recovered q is outside "
+                                 "[0, 2^16]")
+        dense = zero.repeat(total)
+        dense[loc] = lanes.as_u32(q)
+        want += dense
+        x = r["sels"][i].result.values - mean[loc]
+        sent[loc] += torch.maximum(torch.minimum(x, alpha[loc]), -alpha[loc])
+    dec = blocks[0].cipher.decrypt(r["agg"], r["idx_list"])
+    if not torch.equal(lanes.as_u32(dec), want % (1 << INT_BITS)):
+        raise AssertionError("decrypted lanes != the survivors' densified q "
+                             "summed mod 2^20")
+    new = r["new"]
+    if new.shape != (N_FEMNIST,) or not bool(torch.isfinite(new).all()):
+        raise AssertionError("new global model is not finite or has the "
+                             "wrong shape")
+    expect = r["before"] + mean + sent / len(survivors)
+    step = 2 * alpha / ((1 << ELEMENT_BITS) - 1)
+    err = (new - expect).abs()
+    if bool((err > step).any()):
+        raise AssertionError(f"new model off what the clients sent by "
+                             f"{float((err / step).max()):.3f} steps")
+    return float((err / step).max())
+
+
+def run_sparse_path(dev, model, name, mask, rounds):
+    """A sparse path: `rounds` of (iteration, survivors) with the same
+    clients, whose residual memory carries from round to round.  Checks
+    each round and its launches: every client's encrypt is one launch (the
+    single mask's add stream, or the double mask), the decrypt one scatter
+    a survivor.  Returns the first round's launches and the results."""
+    codec = WeightsCodec(model.params_to_flax(), device=dev)
+    state = {"blocks": make_clients(dev, codec, N_CLIENTS, mask=mask),
+             "sparsifiers": [Sparsifier(codec, SPARSITY)
+                             for _ in range(N_CLIENTS)]}
+    before = codec.flatten(model.params_to_flax())
+    out = []
+    for it, survivors in rounds:
+        launches, secs, r = run_sparse_round(dev, codec, state, before,
+                                             survivors, it, mask)
+        choice = r["broadcast"]["choice"]
+        if mask == "dynamic" and choice != "single":
+            raise AssertionError(f"path {name}: the dynamic choice is "
+                                 f"{choice}, not single")
+        counts = {len(s.result.locations) for s in r["sels"]}
+        if counts != {N_COMPACT}:
+            raise AssertionError(f"path {name}: compact counts {counts}, "
+                                 f"expected {N_COMPACT}")
+        enc_mode = "single" if choice == "single" else "double"
+        want = dict.fromkeys(fm.MODES, 0)
+        want[enc_mode] = N_CLIENTS
+        want["scatter"] = len(survivors)
+        if launches != want:
+            raise AssertionError(f"path {name} iter {it}: launches "
+                                 f"{launches}, expected {want}")
+        worst = check_sparse_round(dev, survivors, it, r)
+        print(f"path {name} iter={it} survivors={len(survivors)}/{N_CLIENTS}"
+              f": masking {mask!r} -> choice {choice!r}, {N_COMPACT} compact "
+              f"lanes a client, kernel launches {sum(launches.values())} "
+              f"({launches}), decrypted == densified sum(q) mod 2^{INT_BITS},"
+              f" new model within {worst:.3f} steps of what the clients sent;"
+              f" host time by phase (first run): " + ", ".join(
+                  f"{k} {v * 1e3:.1f} ms" for k, v in secs.items()))
+        out.append((launches, secs, r))
+        before = r["new"]
+    return out
 
 
 def time_round_phases(dev, model, reps=7):
@@ -320,20 +590,25 @@ def time_round_phases(dev, model, reps=7):
             for k in samples[0]}
 
 
-def check_round(dev, survivors, it, r):
-    """Decrypted lanes == sum(q) mod 2^20; new model within one step."""
+def check_round(dev, survivors, it, r, int_bits=INT_BITS, batch=False):
+    """Decrypted lanes == sum(q) mod 2^m; new model within one step."""
     codec, blocks, ups = r["codec"], r["blocks"], r["ups"]
     rk = blocks[0].cipher._round_keys
     # each client's q, recovered with the plain version of its own masks
-    qs = [fm.mask_apply_ref(ups[i].lanes, rk, it, i + 1, i, INT_BITS)
+    qs = [fm.mask_apply_ref(ups[i].lanes, rk, it, i + 1, i, int_bits)
           for i in survivors]
     for q in qs:
-        if int(q.min()) < 0 or int(q.max()) >= 1 << ELEMENT_BITS:
+        fields = (qops.unbatch_lanes(q, codec.total, int_bits, ELEMENT_BITS,
+                                     blocks[0].quantizer.factor)
+                  if batch else q)
+        if int(fields.min()) < 0 or int(fields.max()) >= 1 << ELEMENT_BITS:
             raise AssertionError("a recovered q is outside [0, 2^16)")
-    want = sum(lanes.as_u32(q) for q in qs) % (1 << INT_BITS)
+    want = qs[0]
+    for q in qs[1:]:
+        want = lanes.lane_add(want, q, int_bits)
     dec = blocks[0].cipher.decrypt(r["agg"], r["idx_list"])
-    if not torch.equal(lanes.as_u32(dec), want):
-        raise AssertionError("decrypted lanes != sum(q) mod 2^20")
+    if not torch.equal(dec, want):
+        raise AssertionError(f"decrypted lanes != sum(q) mod 2^{int_bits}")
     new = r["new"]
     if new.shape != (N_FEMNIST,) or not bool(torch.isfinite(new).all()):
         raise AssertionError("new global model is not finite or has the "
@@ -441,6 +716,68 @@ def time_mask(dev, card, counts=(N_FEMNIST, 4_194_304)):
               f"share {bound / k:.3f}; {calls:.4f} ms a call over runs of "
               f"calls from the host; plain torch {p:.4f} ms (CUDA events)")
     return times
+
+
+def has_modes() -> bool:
+    """Whether the built mask library has the other modes' entry point (an
+    older csrc/flashe_mask.cu dropped into a copy of the tree has not)."""
+    return hasattr(_build.load("flashe_mask"), "flashe_mask_apply_modes")
+
+
+def time_mode(kern, plain, bound):
+    """ms a call of kern() over CUDA graphs of 50 calls (the mean of two),
+    over runs of host calls, and of plain(), beside the bound."""
+    calls, plain_ms = time_turns(kern, plain, 50, 10)
+    ms = statistics.mean(graph_ms(kern, 50) for _ in range(2))
+    return dict(ms=ms, host_calls_ms=calls, plain_ms=plain_ms,
+                bound=bound)
+
+
+def time_modes(dev, card):
+    """The mask kernel's other modes at their paths' shapes: one stream
+    (path S's encrypt, 120,655 lanes), the scatter with one stream and
+    with two (the decrypt of S and of D: 120,655 sorted random locations in
+    1,206,590 lanes), and 120-bit limbs with both streams (path B's
+    encrypt, 201,099 lanes).  Returns {mode: times}."""
+    rk = round_keys(dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 5)
+    q = _rand_lanes(gen, dev, N_COMPACT, INT_BITS)
+    agg = _rand_lanes(gen, dev, N_FEMNIST, INT_BITS)
+    loc = torch.sort(torch.randperm(N_FEMNIST, generator=gen,
+                                    device=dev)[:N_COMPACT]).values
+    sectors = int(torch.unique(loc >> 3).numel())
+    ql = _rand_lanes(gen, dev, B_LANES, B_BITS)
+    out = {}
+    out["single"] = time_mode(
+        lambda: fm.mask_apply(q, rk, 0, 1, None, INT_BITS),
+        lambda: fm.mask_apply_ref(q, rk, 0, 1, None, INT_BITS),
+        mask_bound(N_COMPACT, card, streams=1))
+    out["single"]["shape"] = (f"{N_COMPACT} lanes, int_bits {INT_BITS}, the "
+                              "add stream (path S's encrypt)")
+    for name, add, streams in (("scatter", None, 1), ("scatter double", 2, 2)):
+        out[name] = time_mode(
+            lambda: fm.mask_scatter(agg, loc, rk, 0, add, 1, INT_BITS),
+            lambda: fm.mask_scatter_ref(agg, loc, rk, 0, add, 1, INT_BITS),
+            mask_bound(N_COMPACT, card, streams=streams, sectors=sectors))
+        out[name]["shape"] = (
+            f"{N_COMPACT} sorted random locations in {N_FEMNIST} lanes "
+            f"({sectors} 32-byte sectors), int_bits {INT_BITS}, "
+            + ("the minus stream (path S's decrypt, a survivor)"
+               if add is None else "both streams (path D's decrypt)"))
+    out["limbs"] = time_mode(
+        lambda: fm.mask_apply(ql, rk, 0, 1, 2, B_BITS),
+        lambda: fm.mask_apply_ref(ql, rk, 0, 1, 2, B_BITS),
+        mask_bound(B_LANES, card, m=B_BITS))
+    out["limbs"]["shape"] = (f"{B_LANES} lanes x 4 limbs, int_bits {B_BITS},"
+                             " both streams (path B's encrypt)")
+    for name, t in out.items():
+        b, by = t["bound"]
+        print(f"mask kernel, mode {name}, {t['shape']}: {t['ms']:.4f} ms a "
+              f"call over CUDA graphs of calls, bound {b:.4f} ms by {by}, "
+              f"share {b / t['ms']:.3f}; {t['host_calls_ms']:.4f} ms a call "
+              f"over runs of calls from the host; plain torch "
+              f"{t['plain_ms']:.4f} ms (CUDA events)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -855,13 +1192,20 @@ def time_paths(dev, keypair, card):
     return out
 
 
-def mask_bound(count, card):
-    """The mask kernel's bound at `count` lanes of INT_BITS: two T-table
-    AES-256 blocks for every 128 // INT_BITS lanes, LANE_OPS a lane;
-    4 bytes a lane read and 4 written."""
-    blocks = 2 * -(-count // (128 // INT_BITS))
-    return roofline.bound_ms(blocks * AES_TTABLE_INT_OPS + LANE_OPS * count,
-                             8 * count, card, lds=blocks * AES_TTABLE_LOADS)
+def mask_bound(count, card, m=INT_BITS, streams=2, sectors=None):
+    """The mask kernel's bound at `count` lanes of m bits and `streams`
+    mask streams: that many T-table AES-256 blocks for every 128 // m
+    lanes, lane_ops(streams) a limb of a lane.  Bytes: each lane's limbs
+    read from q and written to out; or for the scatter (`sectors`, the
+    32-byte sectors of the aggregate that the locations touch) the int64
+    locations read once and those sectors read and written."""
+    limbs = lanes.nlimbs_for(m)
+    blocks = streams * -(-count // masks.merge_size(m))
+    nbytes = (8 * limbs * count if sectors is None
+              else 8 * count + 2 * 32 * sectors)
+    return roofline.bound_ms(
+        blocks * AES_TTABLE_INT_OPS + lane_ops(streams) * limbs * count,
+        nbytes, card, lds=blocks * AES_TTABLE_LOADS)
 
 
 def nvidia_smi() -> str:
@@ -872,21 +1216,25 @@ def nvidia_smi() -> str:
 
 
 def print_mask_sass():
-    """The mask kernel's instructions by opcode, where cuobjdump is at
-    hand.  The span loop's body is straight-line code, two AES-256 blocks a
-    thread, so the table loads and the integer operations of the whole
-    kernel are, to within its prologue and the lane loop, those of one
-    counter block."""
-    ops = (_build.sass_opcodes("flashe_mask") or {}).get("flashe_mask_kernel")
-    if not ops:
+    """The mask kernel's instructions by opcode, each instance (streams,
+    limbs, scatter), where cuobjdump is at hand.  The span loop's body is
+    straight-line code, one or two AES-256 blocks a thread, so the table
+    loads and the integer operations of an instance are, to within its
+    prologue and the lane loop, those of one counter block."""
+    sass = _build.sass_opcodes("flashe_mask") or {}
+    names = sorted(k for k in sass if k.startswith("flashe_mask_kernel"))
+    if not names:
         print("sass flashe_mask.cu: no cuobjdump, not counted")
         return
-    integer = sum(n for op, n in ops.items() if op in (
-        "PRMT", "LOP3", "SHF", "IADD3", "VIADD", "LEA", "SEL", "ISETP",
-        "IMAD", "MOV", "IABS", "IMNMX"))
-    print(f"sass flashe_mask.cu: flashe_mask_kernel: {sum(ops.values())} "
-          f"instructions, {ops['LDS']} LDS, {integer} integer ("
-          + ", ".join(f"{op} {n}" for op, n in ops.most_common(12)) + ")")
+    for name in names:
+        ops = sass[name]
+        integer = sum(n for op, n in ops.items() if op in (
+            "PRMT", "LOP3", "SHF", "IADD3", "VIADD", "LEA", "SEL", "ISETP",
+            "IMAD", "MOV", "IABS", "IMNMX"))
+        print(f"sass flashe_mask.cu: {name}: {sum(ops.values())} "
+              f"instructions, {ops['LDS']} LDS, {integer} integer ("
+              + ", ".join(f"{op} {n}" for op, n in ops.most_common(12))
+              + ")")
 
 
 def build_kernels():
@@ -927,11 +1275,18 @@ def main(argv=None) -> int:
 
     build_kernels()
     if args.times:
-        time_mask(dev, card, MASK_SMALL_COUNTS + (N_FEMNIST, 4_194_304))
+        time_mask(dev, card, MASK_SMALL_COUNTS + (N_COMPACT, N_FEMNIST,
+                                                  4_194_304))
+        if has_modes():
+            time_modes(dev, card)
+        else:
+            print("this flashe_mask.cu has no flashe_mask_apply_modes: its "
+                  "other modes are not timed")
         time_paths(dev, PaillierKeypair.generate_keypair(2048), card)
         return 0
 
     max_err = check_kernel_grid(dev)
+    mode_err = check_modes_grid(dev)
 
     torch.manual_seed(SEED)
     model = FemnistCNN(device=dev).eval()
@@ -939,22 +1294,47 @@ def main(argv=None) -> int:
     if n_params != N_FEMNIST:
         raise AssertionError(f"FemnistCNN has {n_params} parameters")
 
-    first = None
+    first, path_b = None, []
     for it, survivors in ((0, list(range(N_CLIENTS))),
                           (1, list(range(N_CLIENTS - 1)))):
-        n, secs, r = run_round(dev, model, survivors, it)
-        # one launch per encrypt, one per decrypt boundary pair
-        expect = N_CLIENTS + len(merge_idx_runs(survivors)[0])
-        if n != expect:
-            raise AssertionError(f"round {it}: {n} kernel launches, "
-                                 f"expected {expect}")
-        worst = check_round(dev, survivors, it, r)
-        print(f"round iter={it} survivors={len(survivors)}/{N_CLIENTS}: "
-              f"{r['codec'].total} lanes, kernel launches {n} (= {N_CLIENTS} "
-              f"encrypts + {n - N_CLIENTS} decrypt), decrypted == sum(q) mod 2^{INT_BITS}, "
-              f"new model within {worst:.3f} steps of the clients' mean, "
-              f"first-run host time {secs * 1e3:.1f} ms")
-        first = first or (n, r)
+        for bits, batch, mode in ((INT_BITS, False, "double"),
+                                  (B_BITS, True, "limbs")):
+            launches, secs, r = run_round(dev, model, survivors, it, bits,
+                                          batch)
+            # one launch per encrypt, one per decrypt boundary pair
+            n = N_CLIENTS + len(merge_idx_runs(survivors)[0])
+            want = dict.fromkeys(fm.MODES, 0)
+            want[mode] = n
+            if launches != want:
+                raise AssertionError(f"round {it} int_bits {bits}: kernel "
+                                     f"launches {launches}, expected {want}")
+            worst = check_round(dev, survivors, it, r, bits, batch)
+            print(f"{'path B, batched ' if batch else ''}round iter={it} "
+                  f"survivors={len(survivors)}/{N_CLIENTS}: "
+                  f"{r['agg'].shape[0]} lanes of {bits} bits, kernel "
+                  f"launches {n} (= {N_CLIENTS} encrypts + {n - N_CLIENTS} "
+                  f"decrypt, mode {mode}), decrypted == sum(q) mod "
+                  f"2^{bits}, new model within {worst:.3f} steps of the "
+                  f"clients' mean, first-run host time {secs * 1e3:.1f} ms")
+            if batch:
+                path_b.append(n)
+            else:
+                first = first or (n, r)
+
+    # the sparse paths: S (dynamic masking, which chooses the single mask)
+    # over five iterations, D (the double mask) with client 9 dropped in
+    # its second round
+    everyone, dropout = list(range(N_CLIENTS)), list(range(N_CLIENTS - 1))
+    path_s = run_sparse_path(dev, model, "S", "dynamic",
+                             [(it, everyone) for it in range(5)])
+    path_d = run_sparse_path(dev, model, "D", "double",
+                             [(0, everyone), (1, dropout)])
+    phases = {k: statistics.median(secs[k] for _, secs, _ in path_s[1:]) * 1e3
+              for k in path_s[0][1]}
+    print("path S round by phase (medians of iterations 1-4, host clock, a "
+          "synchronize after each phase): " + ", ".join(
+              f"{k} {v:.1f} ms" for k, v in phases.items())
+          + f"; the round {sum(phases.values()):.1f} ms")
 
     # the full round's new global model runs: finite logits that agree
     # with the same model on the CPU
@@ -979,8 +1359,9 @@ def main(argv=None) -> int:
     # timings: the kernel against its plain version, the 10-ciphertext sum,
     # bench.py's metric n / (one encrypt + the sum + the decrypt), and the
     # whole round
-    times = time_mask(dev, card)
-    for count, (_, _, k) in times.items():
+    times = time_mask(dev, card, (N_FEMNIST, 4_194_304, N_COMPACT))
+    mode_times = time_modes(dev, card)
+    for count, (_, _, k) in list(times.items())[:2]:
         cts = [lanes.to_i32(torch.randint(0, 1 << 32, (count,), device=dev,
                                           dtype=torch.int64))
                for _ in range(N_CLIENTS)]
@@ -1049,6 +1430,18 @@ def main(argv=None) -> int:
         ("mont_exp_rows", "flashe_tpu/ops/pallas_modmath.py:317",
          pl_launches, pl_launches["mont_exp_rows"])]
     mbound, mby = mask_bound(N_FEMNIST, card)
+    # the other modes of the mask kernel: launches of the path that runs
+    # each (path S's first round, path D's, path B's), times at its shape
+    mode_rows = [
+        ("single", "single", path_s[0][0]["single"], "S",
+         "flashe_tpu/crypto/flashe.py:316-324 (XLA single-mask encrypt)"),
+        ("scatter", "scatter", path_s[0][0]["scatter"], "S",
+         "flashe_tpu/crypto/flashe.py:411-424 (XLA sparse decrypt)"),
+        ("scatter double", "scatter", path_d[0][0]["scatter"], "D",
+         "flashe_tpu/crypto/flashe.py:411-424 (XLA sparse decrypt)"),
+        ("limbs", "limbs", path_b[0], "B",
+         "flashe_tpu/crypto/flashe.py:247-250, 316-324 (XLA streams at "
+         "int_bits > 32)")]
     print(json.dumps({"kernels": [{
         "name": "flashe_mask_apply",
         "route": "cuda",
@@ -1065,6 +1458,23 @@ def main(argv=None) -> int:
         "bound_by": mby,
         "library_ms": None,
     }] + [{
+        "name": f"flashe_mask_apply_modes ({name})",
+        "route": "cuda",
+        "source": "flashe_tpu_torch/csrc/flashe_mask.cu",
+        "replaces": "flashe_tpu/ops/pallas_flashe.py:79",
+        "stands_in_for": stands_in_for,
+        "path": path,
+        "launches": launched,
+        "launches_per_round": launched,
+        "max_abs_err": mode_err[err_key],
+        "ms": mode_times[name]["ms"],
+        "host_calls_ms": mode_times[name]["host_calls_ms"],
+        "plain_ms": mode_times[name]["plain_ms"],
+        "shape": mode_times[name]["shape"],
+        "bound_ms": mode_times[name]["bound"][0],
+        "bound_by": mode_times[name]["bound"][1],
+        "library_ms": None,
+    } for name, err_key, launched, path, stands_in_for in mode_rows] + [{
         "name": name,
         "route": "cuda",
         "source": "flashe_tpu_torch/csrc/montgomery.cu",

@@ -4,14 +4,23 @@ A ciphertext is an int32 lane tensor holding uint32 bit patterns.  Client
 idx encrypts q as (q + a_idx - a_{idx+1}) mod 2^m, where a_s is the AES-256
 mask stream s of the current iteration; the sum of all clients' ciphertexts
 telescopes to sum(q) + a_n - a_0, and the surviving clients' sum after a
-dropout to the run-merged boundaries of `merge_idx_runs`.  Encrypt and
-every decrypt boundary pair are one fused mask launch each
-(flashe_tpu_torch/ops/flashe_mask.py): the CUDA kernel on the card, the
-plain torch version on the CPU.
+dropout to the run-merged boundaries of `merge_idx_runs`.  With the single
+mask a client encrypts q + a_idx and the decrypt subtracts each survivor's
+a_i.  Lanes wider than 32 bits are (n, L) int32 limbs.
 
-Not ported yet, and raising NotImplementedError: the single mask, the
-sparse (compact-counter) decrypt, local multi-device sharding and, on the
-card, lanes wider than 32 bits.
+Sparsified uploads (`set_masks`): client i encrypted its compacted top-s%
+vector at counters 0 .. len(loc_i) - 1, and the arbiter scattered it to the
+dense positions loc_i, so the sparse decrypt undoes -a_i (+ a_{i+1} for the
+double mask) of each survivor's compact streams at loc_i.  The JAX package
+keeps the same divergence from the reference's dense-counter double-mask
+reconstruction (flashe_tpu/crypto/flashe.py:17-22).
+
+Every encrypt, every decrypt boundary pair, each single-mask survivor and
+each survivor's sparse scatter is one fused mask launch
+(flashe_tpu_torch/ops/flashe_mask.py): the CUDA kernel on the card, the
+plain torch version on the CPU.  No mask stream is ever written out, so
+there is nothing to precompute.  Local multi-device sharding is not ported
+yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -23,7 +32,7 @@ import torch
 
 from flashe_tpu_torch.device import resolve_device
 from flashe_tpu_torch.ops import aes
-from flashe_tpu_torch.ops.flashe_mask import mask_apply
+from flashe_tpu_torch.ops.flashe_mask import mask_apply, mask_scatter
 from flashe_tpu_torch.ops.lanes import nlimbs_for
 
 __all__ = ["FlasheCipher", "merge_idx_runs"]
@@ -48,14 +57,9 @@ class FlasheCipher:
     """Session object owned by one client; the arbiter holds no key."""
 
     def __init__(self, int_bits: int, mask: str = "double", device="cuda"):
-        if mask != "double":
-            raise NotImplementedError(
-                f"mask={mask!r}: only the double mask is ported; the single "
-                "mask is not ported yet")
+        if mask not in ("double", "single"):
+            raise ValueError(f"mask must be 'double' or 'single', not {mask!r}")
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and nlimbs_for(int_bits) > 1:
-            raise NotImplementedError(
-                "int_bits > 32 on the card is not ported yet")
         self.int_bits = int_bits
         self.masking_scheme = mask
 
@@ -70,6 +74,11 @@ class FlasheCipher:
         self.iter_index = -1
         self.num_clients = None
         self.num_params = None
+
+        # sparsification state (the dynamic-masking broadcast): each
+        # client's dense locations, int64 on self.device
+        self.masks = None
+        self.total = None
 
     # -- session setup -----------------------------------------------------
 
@@ -120,13 +129,30 @@ class FlasheCipher:
             "sharding a party's lanes over local devices is not ported yet")
 
     def set_masks(self, masks, total):
-        if masks is not None:
-            raise NotImplementedError(
-                "the sparse (compact-counter) decrypt is not ported yet")
+        """Install the sparsity location lists, one a client by idx (None
+        turns the sparse decrypt off).  Each is a strictly increasing
+        sequence of positions below `total`, checked here on the host: the
+        scatter writes where they point."""
+        self.total = total
+        if masks is None:
+            self.masks = None
+            return
+        locs = []
+        for i, m in enumerate(masks):
+            a = np.asarray(m.cpu() if isinstance(m, torch.Tensor) else m,
+                           dtype=np.int64)
+            if a.ndim != 1 or (a.size and (
+                    a[0] < 0 or a[-1] >= total or np.any(np.diff(a) <= 0))):
+                raise ValueError(f"locations of client {i} are not strictly "
+                                 f"increasing positions below {total}")
+            locs.append(torch.from_numpy(a).to(self.device))
+        self.masks = locs
 
     def prepare_encrypt(self):
-        """No-op: the fused kernel generates masks cheaper than it could
-        read precomputed ones back, as on the TPU."""
+        """No-op.  The JAX package precomputes mask streams only where its
+        fused kernel does not serve; here the kernel serves every path
+        (double and single mask, limbs, the sparse scatter), and generates
+        a stream cheaper than it could read a precomputed one back."""
 
     def prepare_decrypt(self):
         """No-op, as prepare_encrypt."""
@@ -134,23 +160,48 @@ class FlasheCipher:
     # -- encrypt / decrypt -------------------------------------------------
 
     def encrypt(self, value: torch.Tensor) -> torch.Tensor | None:
-        """(n,) int32 lanes (or (n, L) limbs on the CPU) -> ciphertext:
-        c = (q + a_idx - a_{idx+1}) mod 2^int_bits."""
+        """(n,) int32 lanes or (n, L) limbs -> ciphertext:
+        c = (q + a_idx - a_{idx+1}) mod 2^int_bits (double), or
+        (q + a_idx) mod 2^int_bits (single); one launch."""
         if self.prp_seed is None:
             return None
+        minus = self.idx + 1 if self.masking_scheme == "double" else None
         return mask_apply(value, self._round_keys, self.iter_index, self.idx,
-                          self.idx + 1, self.int_bits)
+                          minus, self.int_bits)
 
     def decrypt(self, value: torch.Tensor, idx_list=None) -> torch.Tensor | None:
         """Decrypt an aggregate of the surviving clients in idx_list (all
-        num_clients by default): one mask launch per run-merged
-        (add, minus) boundary pair."""
+        num_clients by default).  Dense double mask: one launch per
+        run-merged (add, minus) boundary pair; single mask: one -a_i launch
+        per survivor; sparse (masks set): one scatter per survivor."""
         if self.prp_seed is None:
             return None
         if idx_list is None:
             idx_list = list(range(self.num_clients))
+        if self.masks is not None:
+            return self._decrypt_sparse(value, idx_list)
         out = value
+        if self.masking_scheme == "single":
+            for idx in idx_list:
+                out = mask_apply(out, self._round_keys, self.iter_index, None,
+                                 idx, self.int_bits)
+            return out
         for a, b in zip(*merge_idx_runs(idx_list)):
             out = mask_apply(out, self._round_keys, self.iter_index, a, b,
                              self.int_bits)
+        return out
+
+    def _decrypt_sparse(self, value: torch.Tensor, idx_list) -> torch.Tensor:
+        """Undo each survivor's compact-counter masks at its locations, on
+        a copy of the dense aggregate: one scatter launch a survivor."""
+        if nlimbs_for(self.int_bits) > 1:
+            raise NotImplementedError(
+                "sparsified decryption requires int_bits <= 32 (batch mode "
+                "and sparsification are mutually exclusive in the reference "
+                "configs as well)")
+        out = value.clone()
+        for i in idx_list:
+            add = i + 1 if self.masking_scheme == "double" else None
+            mask_scatter(out, self.masks[i], self._round_keys,
+                         self.iter_index, add, i, self.int_bits)
         return out

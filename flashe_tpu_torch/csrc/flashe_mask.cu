@@ -10,8 +10,27 @@
 //
 // where L(s, b, j) is bits [j*m, (j+1)*m) of the big-endian 128-bit value
 // AES256_rk(iter (4B BE) || s (4B BE) || b (8B BE)) -- the contract of
-// flashe_tpu/ops/masks.py, bit for bit.  m <= 32; lanes are int32 tensors
-// holding uint32 bit patterns, and all arithmetic here is uint32.
+// flashe_tpu/ops/masks.py, bit for bit.  Lanes are int32 tensors holding
+// uint32 bit patterns, and all arithmetic here is uint32.
+//
+// The kernel is a template on (STREAMS, LIMBS, SCATTER), one instance a
+// mode of the cipher:
+//  * STREAMS: bit 0 the add stream, bit 1 the minus stream.  The double
+//    mask takes both (3); the single mask's encrypt only the add stream
+//    (1, +a_idx) and its decrypt only the minus stream (2, -a_i), so that
+//    a launch makes half the AES work.
+//  * LIMBS: 32-bit limbs a lane, ceil(m / 32).  At 32 < m <= 128 q and out
+//    are (count, LIMBS) little-endian limb rows; a lane is cut limb by limb
+//    from the staged words, added and subtracted with add.cc / sub.cc
+//    chains, and masked to m bits in its top limb.
+//  * SCATTER: the sparse decrypt.  Lane k of the run (counters 0 .. of the
+//    client's compact stream) updates the dense aggregate in place at
+//    loc[k]: out[loc[k]] = (out[loc[k]] + L(add) - L(minus)) mod 2^m.  A
+//    client's locations are distinct, so a launch needs no atomics; the
+//    launches of several clients are ordered by their stream.  m <= 32.
+// The instance of the dense double mask at m <= 32, <3, 1, 0>, is the one
+// that the bound and the design below describe; the others share its AES
+// and its staging and have not been tuned.
 //
 // What bounds it on this card: the kernel's own work in shared memory and
 // on the integer pipe, not device memory.  A counter block costs two AES-256
@@ -177,13 +196,77 @@ __device__ __forceinline__ void aes256_pair(uint32_t tab, const uint4* rk,
   aes_round<true>(tab, k, b);
 }
 
+// AES-256 of (iter, idx, ctr) alone into s, for a launch with one stream.
+__device__ __forceinline__ void aes256_one(uint32_t tab, const uint4* rk,
+                                           uint32_t iter, uint32_t idx,
+                                           uint64_t ctr, uint32_t s[4]) {
+  uint4 k = rk[0];
+  s[0] = iter ^ k.x;
+  s[1] = idx ^ k.y;
+  s[2] = (uint32_t)(ctr >> 32) ^ k.z;
+  s[3] = (uint32_t)ctr ^ k.w;
+#pragma unroll
+  for (int r = 1; r < 14; ++r) aes_round<false>(tab, rk[r], s);
+  aes_round<true>(tab, rk[14], s);
+}
+
+// r += v (ADD) or r -= v, mod 2^(32 L), one carry or borrow chain.
+template <int L, bool ADD>
+__device__ __forceinline__ void limbs_add(uint32_t r[L], const uint32_t v[L]) {
+  static_assert(L >= 2 && L <= 4, "multi-limb lanes have 2 to 4 limbs");
+  if (L == 2) {
+    if (ADD)
+      asm("add.cc.u32 %0, %0, %2;\n\taddc.u32 %1, %1, %3;"
+          : "+r"(r[0]), "+r"(r[1]) : "r"(v[0]), "r"(v[1]));
+    else
+      asm("sub.cc.u32 %0, %0, %2;\n\tsubc.u32 %1, %1, %3;"
+          : "+r"(r[0]), "+r"(r[1]) : "r"(v[0]), "r"(v[1]));
+  } else if (L == 3) {
+    if (ADD)
+      asm("add.cc.u32 %0, %0, %3;\n\taddc.cc.u32 %1, %1, %4;\n\t"
+          "addc.u32 %2, %2, %5;"
+          : "+r"(r[0]), "+r"(r[1]), "+r"(r[2])
+          : "r"(v[0]), "r"(v[1]), "r"(v[2]));
+    else
+      asm("sub.cc.u32 %0, %0, %3;\n\tsubc.cc.u32 %1, %1, %4;\n\t"
+          "subc.u32 %2, %2, %5;"
+          : "+r"(r[0]), "+r"(r[1]), "+r"(r[2])
+          : "r"(v[0]), "r"(v[1]), "r"(v[2]));
+  } else {
+    if (ADD)
+      asm("add.cc.u32 %0, %0, %4;\n\taddc.cc.u32 %1, %1, %5;\n\t"
+          "addc.cc.u32 %2, %2, %6;\n\taddc.u32 %3, %3, %7;"
+          : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3])
+          : "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]));
+    else
+      asm("sub.cc.u32 %0, %0, %4;\n\tsubc.cc.u32 %1, %1, %5;\n\t"
+          "subc.cc.u32 %2, %2, %6;\n\tsubc.u32 %3, %3, %7;"
+          : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3])
+          : "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]));
+  }
+}
+
+// The L limbs of a lane that starts at bit `bit` of the staged words w
+// (w[0] least significant; bits past the lane's end are masked off later,
+// so the fifth word of a block, never written, is read only into them).
+template <int L>
+__device__ __forceinline__ void cut_limbs(const uint32_t* w, uint32_t p,
+                                          uint32_t bit, uint32_t v[L]) {
+#pragma unroll
+  for (int l = 0; l < L; ++l) v[l] = __funnelshift_r(w[p + l], w[p + l + 1], bit);
+}
+
+template <int STREAMS, int LIMBS, int SCATTER>
 __global__ void __launch_bounds__(kThreads, 1)
     flashe_mask_kernel(const uint32_t* __restrict__ q,
                        uint32_t* __restrict__ out, int64_t count,
                        const int32_t* __restrict__ round_keys,
                        const uint32_t* __restrict__ te0, uint32_t iter,
                        uint32_t add_idx, uint32_t minus_idx, int int_bits,
-                       uint64_t base_block, int64_t nspans, uint32_t magic) {
+                       uint64_t base_block, int64_t nspans, uint32_t magic,
+                       const int64_t* __restrict__ loc, int64_t n_out) {
+  static_assert(STREAMS >= 1 && STREAMS <= 3, "at least one stream");
+  static_assert(!SCATTER || LIMBS == 1, "the scatter takes m <= 32");
   extern __shared__ __align__(256) unsigned char smem[];
   const uint32_t window = (uint32_t)__cvta_generic_to_shared(smem);
   const uint32_t gap = -(window + kHeadBytes) & (kTableBytes - 1);
@@ -213,8 +296,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                  warp * kStageWords;
   uint32_t* wb = wa + kSpan * kWordStride;
   const uint32_t merge = 128 / int_bits;
-  // m == 32 is a whole-word lane: a C shift by 32 is undefined
-  const uint32_t mask = int_bits == 32 ? 0xffffffffu : (1u << int_bits) - 1u;
+  // m == 32 is a whole-word lane: a C shift by 32 is undefined.  With
+  // limbs, the mask of the top limb.
+  const int top_bits = int_bits - 32 * (LIMBS - 1);
+  const uint32_t mask = top_bits == 32 ? 0xffffffffu : (1u << top_bits) - 1u;
 
   // Span s belongs to warp s / gridDim.x % kWarps of block s % gridDim.x.
   const int64_t stride = (int64_t)gridDim.x * kWarps;
@@ -222,38 +307,76 @@ __global__ void __launch_bounds__(kThreads, 1)
        span += stride) {
     const uint64_t ctr = base_block + (uint64_t)(span * kSpan + lane);
     uint32_t a[4], b[4];
-    aes256_pair(tab, rk, iter, add_idx, minus_idx, ctr, a, b);
+    if (STREAMS == 3)
+      aes256_pair(tab, rk, iter, add_idx, minus_idx, ctr, a, b);
+    else if (STREAMS == 1)
+      aes256_one(tab, rk, iter, add_idx, ctr, a);
+    else
+      aes256_one(tab, rk, iter, minus_idx, ctr, b);
     // w[0] (least significant, bytes 12..15) .. w[3]; the fifth word of a
     // block is never written: a lane's bits end at or below bit 128
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
-      wa[lane * kWordStride + w] = a[3 - w];
-      wb[lane * kWordStride + w] = b[3 - w];
+      if (STREAMS & 1) wa[lane * kWordStride + w] = a[3 - w];
+      if (STREAMS & 2) wb[lane * kWordStride + w] = b[3 - w];
     }
     __syncwarp();
     const int64_t lane0 = span * kSpan * merge;
     for (uint32_t i = lane; i < kSpan * merge; i += 32) {
       // lane i of the span: block i / merge (magic = 2^32 / merge, rounded
-      // up, exact for i < 4096), bits [bit, bit + m) of its 128
-      const uint32_t blk = __umulhi(i, magic);
+      // up, exact for i < 4096; at m > 64 a block is one lane), bits
+      // [bit, bit + m) of its 128
+      const uint32_t blk = LIMBS > 2 ? i : __umulhi(i, magic);
       const uint32_t bit = (i - blk * merge) * int_bits;
       const uint32_t p = blk * kWordStride + (bit >> 5);
-      const uint32_t va = __funnelshift_r(wa[p], wa[p + 1], bit);
-      const uint32_t vb = __funnelshift_r(wb[p], wb[p + 1], bit);
       const int64_t g = lane0 + i;
-      if (g < count) out[g] = (q[g] + va - vb) & mask;
+      if (LIMBS == 1) {
+        const uint32_t va =
+            (STREAMS & 1) ? __funnelshift_r(wa[p], wa[p + 1], bit) : 0u;
+        const uint32_t vb =
+            (STREAMS & 2) ? __funnelshift_r(wb[p], wb[p + 1], bit) : 0u;
+        if (SCATTER) {
+          if (g < count) {
+            const int64_t d = loc[g];
+            // a location outside the aggregate is refused by the caller;
+            // here it only must not write out of bounds
+            if ((uint64_t)d < (uint64_t)n_out)
+              out[d] = (out[d] + va - vb) & mask;
+          }
+        } else if (g < count) {
+          out[g] = (q[g] + va - vb) & mask;
+        }
+      } else if (g < count) {
+        constexpr int L = LIMBS > 1 ? LIMBS : 2;  // LIMBS == 1 never here
+        uint32_t r[L], v[L];
+#pragma unroll
+        for (int l = 0; l < L; ++l) r[l] = q[g * L + l];
+        if (STREAMS & 1) {
+          cut_limbs<L>(wa, p, bit, v);
+          limbs_add<L, true>(r, v);
+        }
+        if (STREAMS & 2) {
+          cut_limbs<L>(wb, p, bit, v);
+          limbs_add<L, false>(r, v);
+        }
+        r[L - 1] &= mask;
+#pragma unroll
+        for (int l = 0; l < L; ++l) out[g * L + l] = r[l];
+      }
     }
     __syncwarp();
   }
 }
 
-// Thread blocks of the kernel resident on the current device at once (SMs x
-// blocks an SM), asked of the runtime on the device's first launch and kept,
-// one slot a device (0: not yet asked).  The kernel's shared memory, above
-// 48 KB, is asked for first.  0 with *rc set if the kernel cannot be
-// resident.
+// Thread blocks of a kernel instance resident on the current device at once
+// (SMs x blocks an SM), asked of the runtime on the instance's first launch
+// on the device and kept, one slot a device (0: not yet asked).  The
+// kernel's shared memory, above 48 KB, is asked for first.  0 with *rc set
+// if the kernel cannot be resident.
+template <int S, int L, int X>
 int64_t resident_blocks(int* rc) {
   static std::atomic<int64_t> cache[kMaxDevices];
+  const auto kernel = flashe_mask_kernel<S, L, X>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess && dev >= kMaxDevices) e = cudaErrorInvalidDevice;
@@ -262,18 +385,18 @@ int64_t resident_blocks(int* rc) {
     if (known > 0) return known;
   }
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(flashe_mask_kernel,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kSmemBytes);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(flashe_mask_kernel,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, flashe_mask_kernel, kThreads, kSmemBytes);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, kSmemBytes);
   if (e == cudaSuccess && per_sm < 1) e = cudaErrorInvalidConfiguration;
   if (e != cudaSuccess) {
     *rc = (int)e;
@@ -284,11 +407,55 @@ int64_t resident_blocks(int* rc) {
   return resident;
 }
 
+struct Launch {
+  const void* q;
+  void* out;
+  int64_t count;
+  const void* round_keys;
+  int iter_index, add_idx, minus_idx, int_bits;
+  int64_t base_block;
+  const void* loc;
+  int64_t n_out;
+  void* stream;
+  const void* te0;
+};
+
+// One launch of instance <S, L, X> over `count` lanes (count > 0).
+template <int S, int L, int X>
+int launch(const Launch& a) {
+  int rc = (int)cudaSuccess;
+  const int64_t resident = resident_blocks<S, L, X>(&rc);
+  if (resident == 0) return rc;
+  const int64_t merge = 128 / a.int_bits;
+  const int64_t nblocks = (a.count + merge - 1) / merge;
+  const int64_t nspans = (nblocks + kSpan - 1) / kSpan;
+  const int64_t grid = nspans < resident ? nspans : resident;
+  flashe_mask_kernel<S, L, X><<<(unsigned)grid, kThreads, kSmemBytes,
+                                (cudaStream_t)a.stream>>>(
+      (const uint32_t*)a.q, (uint32_t*)a.out, a.count,
+      (const int32_t*)a.round_keys, (const uint32_t*)a.te0,
+      (uint32_t)a.iter_index, (uint32_t)a.add_idx, (uint32_t)a.minus_idx,
+      a.int_bits, (uint64_t)a.base_block, nspans,
+      0xffffffffu / (uint32_t)merge + 1u, (const int64_t*)a.loc, a.n_out);
+  return (int)cudaGetLastError();
+}
+
+template <int S>
+int launch_dense(const Launch& a, int limbs) {
+  switch (limbs) {
+    case 1: return launch<S, 1, 0>(a);
+    case 2: return launch<S, 2, 0>(a);
+    case 3: return launch<S, 3, 0>(a);
+    default: return launch<S, 4, 0>(a);
+  }
+}
+
 }  // namespace
 
-// q, out: `count` int32 lanes on the device; round_keys: (15, 16) int32 on the
-// device; stream: a cudaStream_t; te0: the 256 words Te0[x] = (2 S(x), S(x),
-// S(x), 3 S(x)), most significant byte first, on the device.  Returns
+// The dense double mask at m <= 32, instance <3, 1, 0>.  q, out: `count`
+// int32 lanes on the device; round_keys: (15, 16) int32 on the device;
+// stream: a cudaStream_t; te0: the 256 words Te0[x] = (2 S(x), S(x), S(x),
+// 3 S(x)), most significant byte first, on the device.  Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int flashe_mask_apply(const void* q, void* out, int64_t count,
                                  const void* round_keys, int iter_index,
@@ -298,20 +465,40 @@ extern "C" int flashe_mask_apply(const void* q, void* out, int64_t count,
   if (int_bits < 1 || int_bits > 32 || te0 == nullptr)
     return (int)cudaErrorInvalidValue;
   if (count <= 0) return (int)cudaSuccess;
-  int rc = (int)cudaSuccess;
-  const int64_t resident = resident_blocks(&rc);
-  if (resident == 0) return rc;
-  const int64_t merge = 128 / int_bits;
-  const int64_t nblocks = (count + merge - 1) / merge;
-  const int64_t nspans = (nblocks + kSpan - 1) / kSpan;
-  const int64_t grid = nspans < resident ? nspans : resident;
-  flashe_mask_kernel<<<(unsigned)grid, kThreads, kSmemBytes,
-                       (cudaStream_t)stream>>>(
-      (const uint32_t*)q, (uint32_t*)out, count, (const int32_t*)round_keys,
-      (const uint32_t*)te0, (uint32_t)iter_index, (uint32_t)add_idx,
-      (uint32_t)minus_idx, int_bits, (uint64_t)base_block, nspans,
-      0xffffffffu / (uint32_t)merge + 1u);
-  return (int)cudaGetLastError();
+  return launch<3, 1, 0>({q, out, count, round_keys, iter_index, add_idx,
+                          minus_idx, int_bits, base_block, nullptr, 0, stream,
+                          te0});
+}
+
+// Every mode.  streams: bit 0 the add stream (add_idx), bit 1 the minus
+// stream (minus_idx), at least one.  int_bits 1 to 128: above 32, q and out
+// are `count` rows of ceil(int_bits / 32) int32 limbs.  loc null: the dense
+// apply, out = q + add - minus.  loc non-null: the scatter, which takes
+// int_bits <= 32 and the minus stream, reads no q, and updates `out` (n_out
+// lanes) in place at the `count` distinct int64 positions loc[0 ..
+// count - 1], from counter block base_block on.  Returns as
+// flashe_mask_apply.
+extern "C" int flashe_mask_apply_modes(const void* q, void* out, int64_t count,
+                                       const void* round_keys, int iter_index,
+                                       int add_idx, int minus_idx, int streams,
+                                       int int_bits, int64_t base_block,
+                                       const void* loc, int64_t n_out,
+                                       void* stream, const void* te0) {
+  const bool scatter = loc != nullptr;
+  if (streams < 1 || streams > 3 || int_bits < 1 || int_bits > 128 ||
+      te0 == nullptr || (scatter && (int_bits > 32 || !(streams & 2))))
+    return (int)cudaErrorInvalidValue;
+  if (count <= 0) return (int)cudaSuccess;
+  const Launch a{q, out, count, round_keys, iter_index, add_idx, minus_idx,
+                 int_bits, base_block, loc, n_out, stream, te0};
+  if (scatter)
+    return streams == 3 ? launch<3, 1, 1>(a) : launch<2, 1, 1>(a);
+  const int limbs = (int_bits + 31) / 32;
+  switch (streams) {
+    case 1: return launch_dense<1>(a, limbs);
+    case 2: return launch_dense<2>(a, limbs);
+    default: return launch_dense<3>(a, limbs);
+  }
 }
 
 // Counter blocks a warp makes at a time: its span is this many x merge lanes.
@@ -321,6 +508,6 @@ extern "C" int flashe_mask_span_blocks(void) { return kSpan; }
 // (resident threads); minus the CUDA error if the kernel cannot be resident.
 extern "C" int64_t flashe_mask_pass_blocks(void) {
   int rc = (int)cudaSuccess;
-  const int64_t resident = resident_blocks(&rc);
+  const int64_t resident = resident_blocks<3, 1, 0>(&rc);
   return resident == 0 ? -(int64_t)rc : resident * kThreads;
 }

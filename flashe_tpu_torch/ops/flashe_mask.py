@@ -1,13 +1,22 @@
 """Fused FLASHE mask apply (port of flashe_tpu/ops/pallas_flashe.py).
 
 `mask_apply` computes (q + stream(add_idx) - stream(minus_idx)) mod 2^m over
-int32 lanes.  On a CUDA tensor it launches the hand-written kernel of
-flashe_tpu_torch/csrc/flashe_mask.cu, which generates both AES-256-CTR mask
-streams on chip (a T-table AES on column words, its table `aes.te0_words()`
-uploaded once a device) and never writes them to device memory; a failed
-build or launch raises.  On a CPU tensor it runs the plain torch version,
-`mask_apply_ref`, which the tests hold against the JAX package.  `launches`
-counts the kernel's launches.
+lanes, either stream absent where its index is None: the double mask takes
+both, the single mask's encrypt only the add stream and its decrypt only
+the minus stream.  Lanes of m <= 32 bits are an int32 vector; wider lanes
+(m <= 128) are (count, L) int32 limb rows, little-endian.  `mask_scatter`
+is the sparse decrypt: it applies the same update in place to a dense
+aggregate at a client's locations, with the client's compact stream.
+
+On a CUDA tensor each call is one launch of the hand-written kernel of
+flashe_tpu_torch/csrc/flashe_mask.cu, which generates the AES-256-CTR mask
+streams on chip (a T-table AES on column words, its table
+`aes.te0_words()` uploaded once a device) and never writes them to device
+memory; a failed build or launch raises.  On a CPU tensor it runs the plain
+torch version (`mask_apply_ref`, `mask_scatter_ref`), which the tests hold
+against the JAX package.  `launches` counts the kernel's launches and
+`mode_launches` the launches of each mode: "double" (both streams, m <=
+32), "single" (one stream, m <= 32), "limbs" (m > 32) and "scatter".
 """
 
 from __future__ import annotations
@@ -21,22 +30,50 @@ from flashe_tpu_torch.ops import _build, aes
 from flashe_tpu_torch.ops.lanes import lane_add, lane_sub, nlimbs_for
 from flashe_tpu_torch.ops.masks import prp_lane_stream
 
-__all__ = ["mask_apply", "mask_apply_ref", "encrypt", "decrypt", "layout",
-           "launches"]
+__all__ = ["mask_apply", "mask_apply_ref", "mask_scatter", "mask_scatter_ref",
+           "encrypt", "decrypt", "layout", "launches", "mode_launches",
+           "MODES"]
 
+MODES = ("double", "single", "limbs", "scatter")
 launches = 0
+mode_launches = dict.fromkeys(MODES, 0)
+
+
+def _check_streams(add_idx, minus_idx):
+    if add_idx is None and minus_idx is None:
+        raise ValueError("a mask apply takes the add stream, the minus "
+                         "stream or both")
 
 
 def mask_apply_ref(q, rk, iter_index, add_idx, minus_idx, int_bits: int,
                    base_block: int = 0) -> torch.Tensor:
     """Plain torch version of the kernel, on q's device (any int_bits;
-    lanes wider than 32 bits are (count, L) limbs)."""
+    lanes wider than 32 bits are (count, L) limbs).  A stream whose index
+    is None is left out."""
+    _check_streams(add_idx, minus_idx)
     count = q.shape[0]
     rk = torch.as_tensor(rk).to(q.device)
-    add = prp_lane_stream(rk, iter_index, add_idx, count, int_bits, base_block)
-    minus = prp_lane_stream(rk, iter_index, minus_idx, count, int_bits,
-                            base_block)
-    return lane_sub(lane_add(q, add, int_bits), minus, int_bits)
+    out = q
+    if add_idx is not None:
+        out = lane_add(out, prp_lane_stream(rk, iter_index, add_idx, count,
+                                            int_bits, base_block), int_bits)
+    if minus_idx is not None:
+        out = lane_sub(out, prp_lane_stream(rk, iter_index, minus_idx, count,
+                                            int_bits, base_block), int_bits)
+    return out
+
+
+def mask_scatter_ref(out, loc, rk, iter_index, add_idx, minus_idx,
+                     int_bits: int, base_block: int = 0) -> torch.Tensor:
+    """Plain torch version of the scatter: out[loc[k]] = (out[loc[k]] +
+    stream(add_idx)[k] - stream(minus_idx)[k]) mod 2^m, in place, with the
+    streams' lanes 0 .. len(loc) - 1 from counter block base_block.
+    Returns out."""
+    if loc.shape[0] == 0:
+        return out
+    out[loc] = mask_apply_ref(out[loc], rk, iter_index, add_idx, minus_idx,
+                              int_bits, base_block)
+    return out
 
 
 @functools.cache
@@ -45,6 +82,18 @@ def _kernel():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _modes_kernel():
+    fn = _build.load("flashe_mask").flashe_mask_apply_modes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -73,47 +122,115 @@ def layout():
     return span, one_pass
 
 
-def _launch(q: torch.Tensor, rk: torch.Tensor, iter_index, add_idx, minus_idx,
-            int_bits: int, base_block: int) -> torch.Tensor:
-    global launches
-    if nlimbs_for(int_bits) > 1:
-        raise NotImplementedError(
-            "the CUDA mask kernel takes int_bits <= 32; multi-limb lanes on "
-            "the card are not ported yet")
-    if q.dtype != torch.int32 or q.dim() != 1 or not q.is_contiguous():
-        raise ValueError("q must be a contiguous 1-D int32 tensor, got "
-                         f"{q.dtype} {tuple(q.shape)}")
-    if (rk.device != q.device or rk.dtype != torch.int32
+def _check_keys(rk: torch.Tensor, device: torch.device):
+    if (rk.device != device or rk.dtype != torch.int32
             or tuple(rk.shape) != (15, 16) or not rk.is_contiguous()):
         raise ValueError("round keys must be a contiguous (15, 16) int32 "
-                         f"tensor on {q.device}")
+                         f"tensor on {device}")
+
+
+def _count(mode: str):
+    global launches
+    launches += 1
+    mode_launches[mode] += 1
+
+
+def _launch(q: torch.Tensor, rk: torch.Tensor, iter_index, add_idx, minus_idx,
+            int_bits: int, base_block: int) -> torch.Tensor:
+    nl = nlimbs_for(int_bits)
+    shape = (q.shape[0],) if nl == 1 else (q.shape[0], nl)
+    if (q.dtype != torch.int32 or tuple(q.shape) != shape
+            or not q.is_contiguous() or not 1 <= int_bits <= 128):
+        raise ValueError(f"q must be contiguous int32 lanes of shape (count,)"
+                         f" at int_bits <= 32 or (count, L) limbs up to 128 "
+                         f"bits, got {q.dtype} {tuple(q.shape)} at "
+                         f"int_bits={int_bits}")
+    _check_keys(rk, q.device)
     out = torch.empty_like(q)
-    if q.numel() == 0:
+    if q.shape[0] == 0:
         return out
-    rc = _kernel()(q.data_ptr(), out.data_ptr(), q.numel(), rk.data_ptr(),
-                   int(iter_index), int(add_idx), int(minus_idx), int_bits,
-                   int(base_block),
-                   torch.cuda.current_stream(q.device).cuda_stream,
-                   _te0(q.device).data_ptr())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    te0 = _te0(q.device).data_ptr()
+    if nl == 1 and add_idx is not None and minus_idx is not None:
+        rc, mode = _kernel()(q.data_ptr(), out.data_ptr(), q.shape[0],
+                             rk.data_ptr(), int(iter_index), int(add_idx),
+                             int(minus_idx), int_bits, int(base_block),
+                             stream, te0), "double"
+    else:
+        streams = (add_idx is not None) | (minus_idx is not None) << 1
+        rc = _modes_kernel()(q.data_ptr(), out.data_ptr(), q.shape[0],
+                             rk.data_ptr(), int(iter_index),
+                             int(add_idx or 0), int(minus_idx or 0), streams,
+                             int_bits, int(base_block), None, 0, stream, te0)
+        mode = "single" if nl == 1 else "limbs"
     if rc != 0:
         raise RuntimeError(f"flashe_mask kernel launch failed: CUDA error {rc}")
-    launches += 1
+    _count(mode)
     return out
+
+
+def _device_ok(t: torch.Tensor, what: str) -> bool:
+    """True for a CPU tensor (the plain version), False for a CUDA one."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {t.device}")
+    return False
 
 
 def mask_apply(q: torch.Tensor, rk: torch.Tensor, iter_index, add_idx,
                minus_idx, int_bits: int, base_block: int = 0) -> torch.Tensor:
-    """(q + stream(add_idx) - stream(minus_idx)) mod 2^int_bits.
+    """(q + stream(add_idx) - stream(minus_idx)) mod 2^int_bits; a stream
+    whose index is None is left out, and at least one is present.
 
     base_block offsets the AES counters and may take any value: lane i
     uses block base_block + i // (128 // int_bits).
     """
-    if q.device.type == "cpu":
+    _check_streams(add_idx, minus_idx)
+    if _device_ok(q, "mask_apply"):
         return mask_apply_ref(q, rk, iter_index, add_idx, minus_idx, int_bits,
                               base_block)
-    if q.device.type != "cuda":
-        raise ValueError(f"mask_apply runs on cpu or cuda, not {q.device}")
     return _launch(q, rk, iter_index, add_idx, minus_idx, int_bits, base_block)
+
+
+def mask_scatter(out: torch.Tensor, loc: torch.Tensor, rk: torch.Tensor,
+                 iter_index, add_idx, minus_idx, int_bits: int,
+                 base_block: int = 0) -> torch.Tensor:
+    """The sparse decrypt's update of a dense aggregate, in place:
+    out[loc[k]] = (out[loc[k]] + stream(add_idx)[k] - stream(minus_idx)[k])
+    mod 2^int_bits for k < len(loc), the streams counted from block
+    base_block.  int_bits <= 32; the minus stream is present, the add
+    stream may be None.  loc is an int64 vector of distinct positions below
+    len(out): the caller checks them (the kernel skips, and does not
+    report, a position outside out).  Returns out."""
+    if minus_idx is None or nlimbs_for(int_bits) != 1:
+        raise ValueError("the scatter subtracts a client's stream at "
+                         "int_bits <= 32")
+    if _device_ok(out, "mask_scatter"):
+        return mask_scatter_ref(out, loc, rk, iter_index, add_idx, minus_idx,
+                                int_bits, base_block)
+    if (out.dtype != torch.int32 or out.dim() != 1 or not out.is_contiguous()
+            or loc.dtype != torch.int64 or loc.dim() != 1
+            or not loc.is_contiguous() or loc.device != out.device):
+        raise ValueError("the scatter takes a contiguous 1-D int32 aggregate "
+                         "and a contiguous 1-D int64 location vector on its "
+                         f"device, got {out.dtype} {tuple(out.shape)} and "
+                         f"{loc.dtype} {tuple(loc.shape)} on {loc.device}")
+    _check_keys(rk, out.device)
+    if loc.shape[0] == 0:
+        return out
+    streams = 2 | (add_idx is not None)
+    rc = _modes_kernel()(None, out.data_ptr(), loc.shape[0], rk.data_ptr(),
+                         int(iter_index), int(add_idx or 0), int(minus_idx),
+                         streams, int_bits, int(base_block), loc.data_ptr(),
+                         out.shape[0],
+                         torch.cuda.current_stream(out.device).cuda_stream,
+                         _te0(out.device).data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"flashe_mask scatter launch failed: CUDA error "
+                           f"{rc}")
+    _count("scatter")
+    return out
 
 
 def encrypt(q, rk, iter_index, client_idx, int_bits: int, base_block: int = 0):

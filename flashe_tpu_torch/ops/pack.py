@@ -1,0 +1,61 @@
+"""Wire bit-packing (port of flashe_tpu/ops/pack.py): lane arrays <-> byte
+strings with no inflation.
+
+Bits of element i occupy positions [B - (i+1)*int_bits, B - i*int_bits) of
+a ceil(B/8)-byte big-endian string, B = n * int_bits: the byte
+serialization of the reference's one big int a layer, element 0 most
+significant.  The wire is host work, so this is numpy on the host; the JAX
+package's optional native fast path is not carried over.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from flashe_tpu_torch.ops.lanes import nlimbs_for
+
+__all__ = ["pack_lanes", "unpack_lanes", "packed_nbytes"]
+
+
+def packed_nbytes(n: int, int_bits: int) -> int:
+    return (n * int_bits + 7) // 8
+
+
+def _lane_bits_msb_first(lanes: np.ndarray, int_bits: int) -> np.ndarray:
+    """(n,) or (n, L) uint32 -> (n, int_bits) uint8 bit matrix, MSB first."""
+    lanes = np.asarray(lanes, dtype=np.uint32)
+    if nlimbs_for(int_bits) == 1:
+        shifts = np.arange(int_bits - 1, -1, -1, dtype=np.uint32)
+        return ((lanes.reshape(-1)[:, None] >> shifts) & 1).astype(np.uint8)
+    # limb l holds bits [32l, 32(l+1)) counted from the LSB
+    bits = np.empty((lanes.shape[0], int_bits), dtype=np.uint8)
+    for b in range(int_bits):
+        src = int_bits - 1 - b  # bit position from LSB for output column b
+        bits[:, b] = (lanes[:, src >> 5] >> np.uint32(src & 31)) & 1
+    return bits
+
+
+def pack_lanes(lanes: np.ndarray, int_bits: int) -> bytes:
+    """Lane array -> big-endian packed bytes (the reference's big-int
+    layout)."""
+    bits = _lane_bits_msb_first(lanes, int_bits).reshape(-1)
+    pad = (-bits.size) % 8
+    if pad:
+        bits = np.concatenate([np.zeros(pad, np.uint8), bits])
+    return np.packbits(bits).tobytes()
+
+
+def unpack_lanes(data: bytes, n: int, int_bits: int) -> np.ndarray:
+    """Packed bytes -> (n,) uint32 (or (n, L) limb) lane array."""
+    bits = np.unpackbits(np.frombuffer(data, np.uint8))
+    bits = bits[len(bits) - n * int_bits:].reshape(n, int_bits)
+    nl = nlimbs_for(int_bits)
+    if nl == 1:
+        shifts = np.arange(int_bits - 1, -1, -1, dtype=np.uint32)
+        return (bits.astype(np.uint32) << shifts).sum(axis=1, dtype=np.uint32)
+    lanes = np.zeros((n, nl), dtype=np.uint32)
+    for b in range(int_bits):
+        src = int_bits - 1 - b
+        lanes[:, src >> 5] |= bits[:, b].astype(np.uint32) << np.uint32(
+            src & 31)
+    return lanes

@@ -7,8 +7,10 @@ summed clients on the way back.  The uniforms of the stochastic rounding come
 from the client's own torch.Generator, seeded from the client index, unless
 the caller passes them.  With batch=True the quantized values are packed
 into int_bits-bit lanes (ops/quantize.py::batch_lanes) on the way out and
-unpacked on the way back.  Not ported yet: the sparse (compacted) gathers
-and the non-secure local min/max.
+unpacked on the way back.  A sparse upload normalizes and quantizes its
+compacted top-s% values with the layer scalars gathered at their
+locations (`normalize_gather`, `quantize_gather`); the non-secure path's
+per-layer min and max are `local_min_max`.
 """
 
 from __future__ import annotations
@@ -142,9 +144,44 @@ class QuantizingClient(_QuantizingBase):
         self.past_std = std.cpu().numpy()
         return flat
 
-    def quantized_zero(self) -> int:
-        u = torch.rand((), generator=self.generator, device=self.device)
-        return quantized_zero(self.element_bits, float(u))
+    def quantized_zero(self, u: float | None = None) -> int:
+        """Quantized 0.0, the dense filler of a sparse upload; u is the
+        uniform of its rounding (drawn from the generator when None)."""
+        if u is None:
+            u = float(torch.rand((), generator=self.generator,
+                                 device=self.device))
+        return quantized_zero(self.element_bits, u)
+
+    # -- sparse (compacted) variants: per-element gather of layer scalars --
+
+    def _gather(self, per_layer, locations: torch.Tensor) -> torch.Tensor:
+        seg = self.codec.segment_ids[locations.to(self.device)]
+        return torch.as_tensor(per_layer, device=self.device)[seg]
+
+    def normalize_gather(self, values: torch.Tensor,
+                         locations: torch.Tensor) -> torch.Tensor:
+        """Subtract the running mean of each value's layer."""
+        return values - self._gather(self.past_mean, locations)
+
+    def quantize_gather(self, values: torch.Tensor, locations: torch.Tensor,
+                        uniforms: torch.Tensor | None = None) -> torch.Tensor:
+        """Quantize a compacted top-s% vector with per-position alphas."""
+        self.alpha = self.compute_alphas()
+        if uniforms is None:
+            uniforms = torch.rand(values.shape, generator=self.generator,
+                                  dtype=torch.float32, device=self.device)
+        return _quantize_flat(values, self._gather(self.alpha, locations),
+                              self.element_bits, uniforms)
+
+    def local_min_max(self, flat: torch.Tensor):
+        """Per-layer min and max of flat, for the arbiter-assisted clipping
+        of the non-secure path: ((L,), (L,)) numpy arrays."""
+        ids, n = self.codec.segment_ids, self.codec.n_layers
+        inf = torch.full((n,), float("inf"), dtype=flat.dtype,
+                         device=flat.device)
+        mins = inf.scatter_reduce(0, ids, flat, "amin")
+        maxs = (-inf).scatter_reduce(0, ids, flat, "amax")
+        return mins.cpu().numpy(), maxs.cpu().numpy()
 
 
 class QuantizingArbiter(_QuantizingBase):

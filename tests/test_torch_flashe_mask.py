@@ -12,6 +12,7 @@ from flashe_tpu.crypto import flashe as jflashe
 from flashe_tpu.ops import aes as jaes
 from flashe_tpu.ops import masks as jmasks
 from flashe_tpu.ops.lanes import lane_add as jlane_add
+from flashe_tpu.ops.lanes import lane_sub as jlane_sub
 from flashe_tpu_torch.crypto.flashe import FlasheCipher, merge_idx_runs
 from flashe_tpu_torch.ops import aes, flashe_mask
 from flashe_tpu_torch.ops.lanes import lane_add, lanes_to_ints, nlimbs_for
@@ -145,15 +146,156 @@ def test_mask_apply_refuses_other_devices():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="single"):
-        FlasheCipher(20, mask="single", device="cpu")
+    """Only local sharding and the sparse decrypt above 32 bits raise."""
+    # the single mask, the location lists and wide lanes are ported
+    assert FlasheCipher(20, mask="single", device="cpu").masking_scheme == \
+        "single"
     c = FlasheCipher(20, device="cpu")
-    with pytest.raises(NotImplementedError, match="sparse"):
-        c.set_masks([[0, 1]], 4)
+    c.set_masks([[0, 1]], 4)
+    assert c.masks[0].tolist() == [0, 1]
+    assert FlasheCipher(120, device="cpu").int_bits == 120
     with pytest.raises(NotImplementedError, match="not ported yet"):
         c.set_local_devices(2)
+    wide = FlasheCipher(40, device="cpu")
+    wide.generate_prp_seed(assigned_seed=SEED)
+    wide.set_masks([[0]], 2)
+    with pytest.raises(NotImplementedError, match="int_bits <= 32"):
+        wide.decrypt(torch.zeros(2, 2, dtype=torch.int32), [0])
     # batch=True lane packing is ported (tests/test_torch_quant_codec.py)
     assert QuantizingClient(20, True, 16, True, True, device="cpu").batch
+
+
+def test_mask_apply_refuses_calls_without_a_stream():
+    q = torch.zeros(4, dtype=torch.int32)
+    rk = torch.zeros(15, 16, dtype=torch.int32)
+    with pytest.raises(ValueError, match="add stream, the minus"):
+        flashe_mask.mask_apply(q, rk, 0, None, None, 20)
+    with pytest.raises(ValueError, match="subtracts a client's stream"):
+        flashe_mask.mask_scatter(q, torch.zeros(1, dtype=torch.int64), rk, 0,
+                                 1, None, 20)
+    with pytest.raises(ValueError, match="subtracts a client's stream"):
+        flashe_mask.mask_scatter(torch.zeros(4, 2, dtype=torch.int32),
+                                 torch.zeros(1, dtype=torch.int64), rk, 0,
+                                 None, 1, 40)
+
+
+def _jax_stream(idx, count, int_bits, it=4):
+    return jmasks.prp_lane_stream(jaes.key_schedule(SEED), it, idx, count,
+                                  int_bits)
+
+
+@pytest.mark.parametrize("streams", ["add", "minus"])
+def test_one_stream_matches_jax_xla(streams):
+    int_bits, count = 20, 301
+    q = _q(np.random.default_rng(2), count, 16)
+    rk = torch.from_numpy(aes.key_schedule(SEED).astype(np.int32))
+    add, minus = (2, None) if streams == "add" else (None, 7)
+    got = flashe_mask.mask_apply(_i32(q), rk, 4, add, minus, int_bits)
+    if streams == "add":
+        want = jflashe._mask_apply_single(q, _jax_stream(2, count, int_bits),
+                                          int_bits)
+    else:
+        want = jlane_sub(q, _jax_stream(7, count, int_bits), int_bits)
+    np.testing.assert_array_equal(_u32(got), np.asarray(want))
+
+
+def _limb_q(rng, count, int_bits):
+    nl = nlimbs_for(int_bits)
+    q = _q(rng, (count, nl), 32)
+    if int_bits % 32:
+        q[:, -1] &= (1 << (int_bits % 32)) - 1
+    return q
+
+
+@pytest.mark.parametrize("int_bits", [33, 64, 120, 128])
+def test_limbs_match_jax_xla_and_host_oracle(int_bits):
+    """Multi-limb lanes with both streams, the add stream alone and the
+    minus stream alone: against the JAX package's XLA streams and lane
+    algebra, and against python ints from the `cryptography` AES."""
+    count, mod = 7, 1 << int_bits
+    q = _limb_q(np.random.default_rng(int_bits), count, int_bits)
+    rk = torch.from_numpy(aes.key_schedule(SEED).astype(np.int32))
+    jadd, jminus = (_jax_stream(i, count, int_bits) for i in (2, 3))
+    host = [jmasks.reference_mask_stream_host(SEED, 4, i, count, int_bits)
+            for i in (2, 3)]
+    qi = lanes_to_ints(q, int_bits)
+    for add, minus in ((2, 3), (2, None), (None, 3)):
+        got = flashe_mask.mask_apply(_i32(q), rk, 4, add, minus, int_bits)
+        assert got.shape == (count, nlimbs_for(int_bits))
+        want, ints = q, qi.copy()
+        if add is not None:
+            want = jlane_add(want, jadd, int_bits)
+            ints = (ints + host[0]) % mod
+        if minus is not None:
+            want = jlane_sub(want, jminus, int_bits)
+            ints = (ints - host[1]) % mod
+        np.testing.assert_array_equal(_u32(got), np.asarray(want))
+        assert list(lanes_to_ints(got, int_bits)) == list(ints)
+
+
+def test_limbs_base_block_matches_host_oracle():
+    int_bits, base, count = 40, 5, 8  # 3 lanes a block
+    q = _limb_q(np.random.default_rng(3), count, int_bits)
+    rk = torch.from_numpy(aes.key_schedule(SEED).astype(np.int32))
+    got = flashe_mask.mask_apply(_i32(q), rk, 4, 2, 3, int_bits,
+                                 base_block=base)
+    n = base * 3 + count
+    add = jmasks.reference_mask_stream_host(SEED, 4, 2, n, int_bits)[-count:]
+    minus = jmasks.reference_mask_stream_host(SEED, 4, 3, n, int_bits)[-count:]
+    want = (lanes_to_ints(q, int_bits) + add - minus) % (1 << int_bits)
+    assert list(lanes_to_ints(got, int_bits)) == list(want)
+
+
+@pytest.mark.parametrize("kind", ["empty", "one", "dense", "random"])
+def test_scatter_matches_jax_sparse_accumulate(kind):
+    """out[loc[k]] -= a[k] (+= b[k] with the add stream) in place, against
+    the JAX cipher's _scatter_accumulate of the same compact streams."""
+    int_bits, n = 20, 301
+    rng = np.random.default_rng(len(kind))
+    loc = {"empty": np.zeros(0, np.int64), "one": np.array([150]),
+           "dense": np.arange(n),
+           "random": np.sort(rng.choice(n, 30, replace=False))}[kind]
+    agg = _q(rng, n, int_bits)
+    rk = torch.from_numpy(aes.key_schedule(SEED).astype(np.int32))
+    for add in (None, 8):
+        out = _i32(agg.copy())
+        got = flashe_mask.mask_scatter(out, torch.from_numpy(loc), rk, 4, add,
+                                       7, int_bits)
+        assert got is out
+        want = agg
+        if len(loc):
+            zero = np.zeros(n, np.uint32)
+            acc = jflashe._scatter_accumulate(
+                zero, _jax_stream(7, len(loc), int_bits), loc, int_bits)
+            want = jlane_sub(want, acc, int_bits)
+            if add is not None:
+                acc = jflashe._scatter_accumulate(
+                    zero, _jax_stream(8, len(loc), int_bits), loc, int_bits)
+                want = jlane_add(want, acc, int_bits)
+        np.testing.assert_array_equal(_u32(got), np.asarray(want))
+        if kind == "dense":  # every position: the dense apply
+            np.testing.assert_array_equal(
+                _u32(got), _u32(flashe_mask.mask_apply(_i32(agg), rk, 4, add,
+                                                       7, int_bits)))
+
+
+def test_prepared_encrypt_equals_unprepared():
+    """The JAX cipher precomputes the next round's streams off its fused
+    kernel's path; the port's prepare is a no-op.  Both encrypt alike."""
+    int_bits, count, it = 40, 301, 3  # the JAX streams of the encrypt test
+    q = _limb_q(np.random.default_rng(6), count, int_bits)
+    (p,), (r,) = _ciphers(int_bits, 1, it - 1)
+    for c in (p, r):
+        c.set_num_params(count)
+        c.prepare_encrypt()
+        c.set_iter_index(it)
+    assert ("enc", it) in r._prepared and p.prepare_encrypt() is None
+    np.testing.assert_array_equal(_u32(p.encrypt(_i32(q))),
+                                  np.asarray(r.encrypt(q)))
+    assert ("enc", it) not in r._prepared
+    (fresh,) = _ciphers(int_bits, 1, it)[1]
+    np.testing.assert_array_equal(_u32(p.encrypt(_i32(q))),
+                                  np.asarray(fresh.encrypt(q)))
 
 
 @pytest.mark.slow

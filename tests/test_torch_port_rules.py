@@ -24,6 +24,7 @@ from flashe_tpu_torch.nn.models import FemnistCNN
 from flashe_tpu_torch.nn.weights import WeightsCodec
 from flashe_tpu_torch.ops.modmath import MontCtx, PairMontCtx
 from flashe_tpu_torch.protocol.blocks import paillier as pblocks
+from flashe_tpu_torch.protocol.blocks.flashe import choose_masking
 from flashe_tpu_torch.quant import aciq as paciq
 from flashe_tpu_torch.quant import quantizer as pquant
 
@@ -53,6 +54,7 @@ def test_port_and_chip_smoke_import_no_jax_package():
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert "flashe_tpu_torch.quant.aciq" in out["modules"]
     assert "flashe_tpu_torch.ops.montgomery" in out["modules"]
+    assert "flashe_tpu_torch.protocol.sparsify" in out["modules"]
     assert out["bad"] == []
 
 
@@ -104,13 +106,14 @@ def _constructors():
         "Host": lambda: pblocks.Host(_ARGS),
         "make_session": lambda: pblocks.make_session(_ARGS, 2,
                                                      keypair=keypair),
+        "choose_masking": lambda: choose_masking([[0]], 2),
     }
 
 
 @pytest.mark.parametrize("name", [
     "FlasheCipher", "PaillierCipher", "FemnistCNN", "WeightsCodec",
     "MontCtx", "PairMontCtx", "QuantizingClient", "Arbiter", "Guest", "Host",
-    "make_session"])
+    "make_session", "choose_masking"])
 def test_entry_points_default_to_the_card(name):
     """Called with no device, each entry point asks for the card: on a host
     without one it raises and never carries on on the CPU."""

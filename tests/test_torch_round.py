@@ -8,7 +8,9 @@ the port runs client_upload, arbiter_reduce and client_download.  Both get
 the same uniforms, drawn with jax.random from each JAX client's key.
 Ciphertexts, aggregate and decrypted lanes are bit-exact; the new global
 vector matches to rtol 1e-6 and atol 1e-6 (the float decode differs only in
-rounding).
+rounding).  The same round runs at int_bits 120 with batch packing
+(examples/configs/cnn_flashe_q16_b6_pad.json at this size): lanes of 6
+fields, 4 limbs each.
 """
 
 import os
@@ -28,6 +30,7 @@ from flashe_tpu.ops.lanes import lane_add as jlane_add
 from flashe_tpu.quant.quantizer import QuantizingClient as JQuant
 from flashe_tpu_torch.crypto.flashe import FlasheCipher
 from flashe_tpu_torch.nn.weights import WeightsCodec
+from flashe_tpu_torch.ops.lanes import lanes_to_ints
 from flashe_tpu_torch.protocol.aggregator import (
     ClientBlock, arbiter_reduce, client_download, client_upload)
 from flashe_tpu_torch.quant.quantizer import QuantizingClient
@@ -41,7 +44,7 @@ def _u32(t):
     return t.numpy().view(np.uint32)
 
 
-def _setup():
+def _setup(int_bits=INT_BITS, batch=False):
     params = jmodels.init_params(jmodels.MLP(features=(32, 8)),
                                  jnp.zeros((2, 12)), seed=0)
     names = {f"{l}/{k}": np.array(v) for l, d in params.items()
@@ -54,10 +57,10 @@ def _setup():
                           device="cpu")
     port, ref = [], []
     for i in range(N_CLIENTS):
-        pc, jc = FlasheCipher(INT_BITS, device="cpu"), JCipher(INT_BITS)
-        pq = QuantizingClient(INT_BITS, False, EB, True, True, seed=i,
+        pc, jc = FlasheCipher(int_bits, device="cpu"), JCipher(int_bits)
+        pq = QuantizingClient(int_bits, batch, EB, True, True, seed=i,
                               device="cpu")
-        jq = JQuant(INT_BITS, False, EB, True, True, seed=i)
+        jq = JQuant(int_bits, batch, EB, True, True, seed=i)
         for c, q, codec in ((pc, pq, pcodec), (jc, jq, jcodec)):
             c.idx = i
             c.set_num_clients(N_CLIENTS)
@@ -73,7 +76,8 @@ def _setup():
     return pcodec, port, ref, pflats, jflats
 
 
-def _round(it, survivors, pcodec, port, ref, pflats, jflats):
+def _round(it, survivors, pcodec, port, ref, pflats, jflats,
+           int_bits=INT_BITS):
     uploads, jcts, qs = [], [], []
     for i in range(N_CLIENTS):  # every client uploads; the arbiter drops
         jc, jq = ref[i]
@@ -81,7 +85,7 @@ def _round(it, survivors, pcodec, port, ref, pflats, jflats):
         _, k = jax.random.split(jq._key)
         u = np.array(jax.random.uniform(k, (pcodec.total,), dtype=jnp.float32))
         q = jq.quantize(jq.normalize(jflats[i]))
-        qs.append(np.asarray(q).astype(np.int64))
+        qs.append(lanes_to_ints(np.asarray(q).view(np.int32), int_bits))
         jcts.append(jc.encrypt(q))
         uploads.append(client_upload(port[i], pcodec, pflats[i], it,
                                      uniforms=torch.from_numpy(u)))
@@ -89,18 +93,18 @@ def _round(it, survivors, pcodec, port, ref, pflats, jflats):
                                       np.asarray(jcts[i]))
         assert uploads[i].idx_list == [i] and uploads[i].degree == 1.0
 
-    agg = arbiter_reduce([uploads[i].lanes for i in survivors], INT_BITS)
+    agg = arbiter_reduce([uploads[i].lanes for i in survivors], int_bits)
     jagg = jcts[survivors[0]]
     for i in survivors[1:]:
-        jagg = jlane_add(jagg, jcts[i], INT_BITS)
+        jagg = jlane_add(jagg, jcts[i], int_bits)
     np.testing.assert_array_equal(_u32(agg), np.asarray(jagg))
 
     jc0, _ = ref[0]
     jdec = np.asarray(jc0.decrypt(jagg, survivors))
     np.testing.assert_array_equal(_u32(port[0].cipher.decrypt(agg, survivors)),
                                   jdec)
-    want = sum(qs[i] for i in survivors) % (1 << INT_BITS)
-    np.testing.assert_array_equal(jdec.astype(np.int64), want)
+    want = sum(qs[i] for i in survivors) % (1 << int_bits)
+    assert list(lanes_to_ints(jdec.view(np.int32), int_bits)) == list(want)
 
     degrees = float(len(survivors))
     for i in range(N_CLIENTS):  # every client installs the new model
@@ -123,6 +127,15 @@ def test_round_matches_jax_then_dropout_round():
     state = _setup()
     _round(0, [0, 1, 2], *state)
     _round(1, [0, 2], *state)  # client 1 missed the upload deadline
+
+
+def test_batched_120_bit_round_matches_jax_then_dropout_round():
+    # factor ceil(log2 3) = 2: 6 fields of 18 bits a 120-bit lane
+    state = _setup(120, batch=True)
+    pcodec, port = state[0], state[1]
+    assert port[0].quantizer.factor == 2
+    _round(0, [0, 1, 2], *state, int_bits=120)
+    _round(1, [0, 2], *state, int_bits=120)
 
 
 def test_round_with_degrees_gives_weighted_mean():

@@ -70,6 +70,24 @@ def test_mask_bound_is_its_table_loads():
     assert 0.0107 < ms < 0.0108
 
 
+def test_mask_bound_of_the_other_modes():
+    # one stream: half the AES of the double mask at the same count
+    double, _ = chip_smoke.mask_bound(120_655, CARD)
+    single, by = chip_smoke.mask_bound(120_655, CARD, streams=1)
+    assert by == "operations" and single == pytest.approx(double / 2)
+    assert single == pytest.approx(20_110 * 224 / CARD.lds_per_s * 1e3)
+    # 120-bit limbs: a block a lane, so 201,099 lanes make the 402,198
+    # blocks of the double mask at 1,206,590 lanes of 20 bits
+    limbs, by = chip_smoke.mask_bound(201_099, CARD, m=120)
+    assert by == "operations"
+    assert limbs == pytest.approx(chip_smoke.mask_bound(1_206_590, CARD)[0])
+    # the scatter: 8-byte locations and 32-byte sectors read and written
+    ms, by = chip_smoke.mask_bound(120_655, CARD, streams=1, sectors=86_000)
+    assert by == "bytes"
+    assert ms == pytest.approx((8 * 120_655 + 64 * 86_000) / 3.35e12 * 1e3)
+    assert chip_smoke.lane_ops(2) == 6 and chip_smoke.lane_ops(1) == 4
+
+
 @pytest.mark.parametrize("m, want", [
     (20, (191, 193, 811_007, 811_009)), (32, (127, 129, 540_671, 540_673)),
     (1, (4095, 4097, 17_301_503, 17_301_505))])
