@@ -56,7 +56,31 @@ Phases, each of which fails the run:
      the clients' packed q exactly, the new model the clients' mean within
      one quantization step, and the launch counters the kernels' share of
      the path; then a 5-row decrypt, which takes the single-product route;
-  8. timings with CUDA events over runs of launches (printed, not
+  8. the federated rounds, through the entry point a user calls
+     (protocol/aggregator.py::with_role) with every role's session setup
+     (uuid sync, the DH exchange through the arbiter, the AES-256-CTR wrap
+     of the guest's PRP seed or Paillier key for each host):
+     - in memory, guest + 9 hosts + arbiter, one thread each on the card,
+       cnn_flashe_q16_b1_pad.json at full width over three rounds: all in;
+       client 9 asleep past upload_timeout_s, dropped and sent the
+       aggregate in its dropped frame; client 9 back.  Each round every
+       client's decrypted lanes must equal the survivors' summed q mod
+       2^20, every client must hold the same model, within one
+       quantization step of the survivors' (clipped) mean, and the mask
+       kernel must run 10 encrypts + 10 clients x 1 boundary pair; each
+       round's time by phase is printed (host clock, a synchronize at each
+       phase's ends);
+     - in memory, the sparse round of cnn_flashe_s100_dyn.json, 10
+       clients: the choice single, 10 single + 100 scatter launches, every
+       client's decrypt equal to the densified sum, the same model;
+     - in memory, cnn_paillier_q16_b100_pad.json with 3 clients at full
+       width, the 2048-bit key generated by the guest: every client's
+       decrypted sums equal to the packed sums, the Montgomery launches;
+     - over TCP: the port's FedBroker on 127.0.0.1 and the guest, one host
+       and the arbiter as three child processes of this script
+       (--tcp-role), one dense round with wire_pack; the same checks, and
+       the wire bytes from each party's TransferStat;
+  9. timings with CUDA events over runs of launches (printed, not
      asserted), at the shapes the paths run: mont_mul at one encrypt's
      12,066 rows x 4096 bits (checked against its plain version there),
      mont_exp_rows at the decrypt's 24,132 rows x 2048 bits with the key's
@@ -76,7 +100,7 @@ counts; the kernels' JSON line and the card's name and power limit, then as
 its last line {"ok": true, "device": {...}}.  Without a CUDA device it
 exits non-zero and prints no result.
 
-    python3 chip_smoke.py --times   # phases 1 and 8 only
+    python3 chip_smoke.py --times   # phases 1 and 9 only
 
 times the mask kernel and the Montgomery kernels at their paths' shapes
 beside their bounds and prints no result line: run in a copy of the tree
@@ -93,15 +117,21 @@ import argparse
 import concurrent.futures
 import json
 import random
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from flashe_tpu_torch.crypto.flashe import FlasheCipher, merge_idx_runs
+from flashe_tpu_torch.fed.tcp import FedBroker, TcpFederation
+from flashe_tpu_torch.fed.transport import default_parties
+from flashe_tpu_torch.fed.variables import HomoTransferVariables
 from flashe_tpu_torch.crypto.paillier import PaillierKeypair
 from flashe_tpu_torch.nn.models import FemnistCNN
 from flashe_tpu_torch.nn.weights import WeightsCodec
@@ -109,16 +139,21 @@ from flashe_tpu_torch.ops import _build, aes, lanes, masks, modmath
 from flashe_tpu_torch.ops import flashe_mask as fm
 from flashe_tpu_torch.ops import montgomery as mg
 from flashe_tpu_torch.ops import quantize as qops
+from flashe_tpu_torch.protocol import aggregator
 from flashe_tpu_torch.protocol.aggregator import (
     ClientBlock, arbiter_reduce, client_download, client_select,
     client_upload, client_upload_sparse)
 from flashe_tpu_torch.protocol.blocks import paillier as pblocks
 from flashe_tpu_torch.protocol.blocks.flashe import arbiter_masking
+from flashe_tpu_torch.protocol.payload import ModelPayload
 from flashe_tpu_torch.protocol.sparsify import Sparsifier, decode_locations
 from flashe_tpu_torch.quant.quantizer import QuantizingClient
+from flashe_tpu_torch.runtime.simulate import run_roles
+from flashe_tpu_torch.runtime.tracking import Tracker, set_tracker, tracker
 from flashe_tpu_torch.tools import roofline
 
 INT_BITS, ELEMENT_BITS, N_CLIENTS = 20, 16, 10
+ROOT = Path(__file__).resolve().parent
 SEED = 0x0F1A5E
 GRID_INT_BITS = (1, 8, 16, 20, 25, 31, 32)
 # to these check_kernel_grid adds, for each int_bits, the lane counts one
@@ -142,6 +177,13 @@ SPARSITY, N_COMPACT = 0.1, 120_655
 # the batched 120-bit round (examples/configs/cnn_flashe_q16_b6_pad.json):
 # factor ceil(log2 10) = 4, six fields of 20 bits a lane, precompute on
 B_BITS, B_FACTOR, B_LANES, B_PARAMS = 120, 4, 201_099, 201_101
+
+# the federated rounds: three dense rounds in memory, the second with
+# client 9 asleep for FED_SLEEP_S past the arbiter's FED_TIMEOUT_S deadline;
+# a 3-client Paillier round; the TCP round's upload packed at 20 bits
+FED_ROUNDS, FED_TIMEOUT_S, FED_SLEEP_S = 3, 2.0, 3.0
+FED_PAILLIER_CLIENTS = 3
+TCP_PACKED_BYTES = 3_016_475  # ceil(1,206,590 x 20 / 8)
 
 # the Paillier configuration, examples/configs/cnn_paillier_q16_b100_pad.json
 PAILLIER_ARGS = {"key_length": 2048, "quantize": {
@@ -1192,6 +1234,490 @@ def time_paths(dev, keypair, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the federated rounds: roles over the in-memory broker and over TCP
+# ---------------------------------------------------------------------------
+
+def config_args(name):
+    """(sparsity, secure_aggregate_args) of examples/configs/<name>."""
+    with open(ROOT / "examples" / "configs" / name) as f:
+        param = json.load(f)["param"]
+    return param.get("sparsity", 1.0), dict(param["secure_aggregate_args"])
+
+
+def record_client(agg, rec):
+    """Record, round by round, a federated client's quantized lanes (with
+    the layer means and alphas that made them) and its decrypted lanes:
+    the seams the checks read, wrapped around its block's methods."""
+    block = agg._block
+    quantize, decrypt = block.quantize, block.decrypt
+
+    def recorded_quantize(flat, uniforms=None):
+        q = quantize(flat, uniforms=uniforms)
+        rec.setdefault("q", []).append(q)
+        rec.setdefault("past_mean", []).append(
+            block.quantizer.past_mean.copy())
+        rec.setdefault("alpha", []).append(np.array(block.quantizer.alpha))
+        return q
+
+    def recorded_decrypt(lanes, *args):
+        out = decrypt(lanes, *args)
+        rec.setdefault("dec", []).append(out)
+        return out
+
+    block.quantize, block.decrypt = recorded_quantize, recorded_decrypt
+
+
+def record_sparse_client(agg, rec):
+    """Record a sparse upload's compacted values and locations, its q and
+    its quantized zero, and the decrypted lanes."""
+    quant = agg._block.quantizer
+    gather, qgather, zero = (quant.normalize_gather, quant.quantize_gather,
+                             quant.quantized_zero)
+
+    def recorded_gather(values, locations):
+        rec.update(values=values, loc=locations,
+                   past_mean=quant.past_mean.copy())
+        return gather(values, locations)
+
+    def recorded_qgather(values, locations, uniforms=None):
+        rec["q"] = qgather(values, locations, uniforms=uniforms)
+        rec["alpha"] = np.array(quant.alpha)
+        return rec["q"]
+
+    def recorded_zero(u=None):
+        rec["zero"] = zero(u)
+        return rec["zero"]
+
+    quant.normalize_gather, quant.quantize_gather = (recorded_gather,
+                                                    recorded_qgather)
+    quant.quantized_zero = recorded_zero
+    decrypt = agg._block.decrypt
+
+    def recorded_decrypt(lanes, *args):
+        rec["dec"] = decrypt(lanes, *args)
+        return rec["dec"]
+
+    agg._block.decrypt = recorded_decrypt
+
+
+def phase_ms(before):
+    """This thread's phases since `before` (a copy of its phase totals),
+    in ms."""
+    now = tracker().phase_totals
+    return {k: (v - before.get(k, 0.0)) * 1e3 for k, v in now.items()
+            if v > before.get(k, 0.0)}
+
+
+def expected_model(codec, past_mean, alpha, sent):
+    """What the round decodes to within a quantization step: the layer
+    means plus the mean of the clients' normalized vectors, each clipped
+    at its layer's alpha.  Returns (expected, step)."""
+    mean = codec.spread(torch.as_tensor(past_mean, device=codec.device))
+    a = codec.spread(torch.as_tensor(alpha, device=codec.device))
+    clipped = sum(torch.maximum(torch.minimum(s - mean, a), -a) for s in sent)
+    return mean + clipped / len(sent), 2 * a / ((1 << ELEMENT_BITS) - 1)
+
+
+def steps_off(new, expect, step, what):
+    worst = float(((new - expect).abs() / step).max())
+    if new.shape != (N_FEMNIST,) or not bool(torch.isfinite(new).all()):
+        raise AssertionError(f"{what}: the new model is not finite or has "
+                             "the wrong shape")
+    if worst > 1:
+        raise AssertionError(f"{what}: the new model is off what the "
+                             f"survivors sent by {worst:.3f} steps")
+    return worst
+
+
+def qsum(qs, int_bits=INT_BITS):
+    """The summed quantized lanes mod 2^int_bits, as int64."""
+    return sum(lanes.as_u32(q) for q in qs) % (1 << int_bits)
+
+
+def run_fed_dense(dev, model):
+    """The federated dense FLASHE round in memory: guest + 9 hosts +
+    arbiter, one thread each on `dev`, through with_role, each with the
+    full session setup (uuid, DH, seed wrap), over FED_ROUNDS rounds:
+    round 1 with host 8 (client 9) asleep past upload_timeout_s, round 2
+    with it back (the survivors sleep as long before round 2, standing in
+    for local training, so that the arbiter's window opens after it has
+    woken).  Every phase of a role synchronizes the card.  Returns the
+    launches by mode and what the checks need."""
+    _, args = config_args("cnn_flashe_q16_b1_pad.json")
+    args["upload_timeout_s"] = FED_TIMEOUT_S
+    codec = WeightsCodec(model.params_to_flax(), device=dev)
+    g0 = codec.flatten(model.params_to_flax())
+    gen = torch.Generator(dev).manual_seed(SEED + 100)
+    noise = [[0.01 * torch.randn(g0.shape, generator=gen, device=dev)
+              for _ in range(N_CLIENTS)] for _ in range(FED_ROUNDS)]
+    recs = [{"sent": [], "new": [], "dropped": [], "phases": [],
+             "round_ms": []} for _ in range(N_CLIENTS)]
+    slow = N_CLIENTS - 1
+
+    def client(trv, i, role):
+        set_tracker(Tracker(role, synchronize=torch.cuda.synchronize))
+        agg = aggregator.with_role(role, trv, 1.0, "flashe", args,
+                                   device=dev)
+        rec = recs[i]
+        rec["idx"] = agg._block.cipher.idx
+        agg.set_codec(codec)
+        record_client(agg, rec)
+        flat = g0
+        for r in range(FED_ROUNDS):
+            if (r == 1 and i == slow) or (r == 2 and i != slow):
+                time.sleep(FED_SLEEP_S)
+            rec["sent"].append(flat + noise[r][i])
+            before, t0 = dict(tracker().phase_totals), time.perf_counter()
+            flat = agg.aggregate_then_get(rec["sent"][-1], iter_index=r,
+                                          degree=1.0, suffix=(r,))
+            torch.cuda.synchronize()
+            rec["round_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["phases"].append(phase_ms(before))
+            rec["new"].append(flat)
+            rec["dropped"].append(agg.was_dropped)
+
+    def arbiter(trv):
+        set_tracker(Tracker("arbiter", synchronize=torch.cuda.synchronize))
+        agg = aggregator.with_role("arbiter", trv, 1.0, "flashe", args,
+                                   device=dev)
+        out = []
+        for r in range(FED_ROUNDS):
+            before, t0 = dict(tracker().phase_totals), time.perf_counter()
+            agg.aggregate_and_broadcast(iter_index=r, suffix=(r,))
+            out.append({"dropped": list(agg.dropped_hosts),
+                        "ms": (time.perf_counter() - t0) * 1e3,
+                        "phases": phase_ms(before)})
+        return out
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_roles(N_CLIENTS - 1, lambda trv: client(trv, 0, "guest"),
+                    lambda trv, h: client(trv, 1 + h, "host"), arbiter,
+                    job_id="chip-smoke-fed", timeout=600)
+    seconds = time.perf_counter() - t0
+    return dict(fm.mode_launches), seconds, dict(
+        codec=codec, recs=recs, arbiter=res["arbiter"])
+
+
+def check_fed_dense(launches, r):
+    codec, recs, arb = r["codec"], r["recs"], r["arbiter"]
+    slow = N_CLIENTS - 1
+    if [rec["idx"] for rec in recs] != list(range(N_CLIENTS)):
+        raise AssertionError(f"ordinals {[rec['idx'] for rec in recs]}, "
+                             "expected guest 0 and host h -> 1 + h")
+    worst = []
+    for rnd in range(FED_ROUNDS):
+        dropped = arb[rnd]["dropped"]
+        if dropped != ([slow - 1] if rnd == 1 else []):
+            raise AssertionError(f"federated round {rnd}: the arbiter "
+                                 f"dropped hosts {dropped}")
+        survivors = [0] + [1 + h for h in range(N_CLIENTS - 1)
+                           if h not in dropped]
+        want = qsum([recs[i]["q"][rnd] for i in survivors])
+        for i, rec in enumerate(recs):
+            if rec["dropped"][rnd] != (rnd == 1 and i == slow):
+                raise AssertionError(f"round {rnd}: client {i} was_dropped "
+                                     f"{rec['dropped'][rnd]}")
+            if not torch.equal(lanes.as_u32(rec["dec"][rnd]), want):
+                raise AssertionError(f"round {rnd}: client {i}'s decrypted "
+                                     "lanes != the survivors' summed q mod "
+                                     f"2^{INT_BITS}")
+            if not torch.equal(rec["new"][rnd], recs[0]["new"][rnd]):
+                raise AssertionError(f"round {rnd}: client {i}'s new model "
+                                     "differs from the guest's")
+            if not (np.array_equal(rec["past_mean"][rnd],
+                                   recs[0]["past_mean"][rnd])
+                    and np.array_equal(rec["alpha"][rnd],
+                                       recs[0]["alpha"][rnd])):
+                raise AssertionError(f"round {rnd}: client {i}'s quantizer "
+                                     "statistics are out of step")
+        expect, step = expected_model(
+            codec, recs[0]["past_mean"][rnd], recs[0]["alpha"][rnd],
+            [recs[i]["sent"][rnd] for i in survivors])
+        worst.append(steps_off(recs[0]["new"][rnd], expect, step,
+                               f"federated round {rnd}"))
+    # each round: 10 encrypts, and every client decrypts one boundary pair
+    want = dict.fromkeys(fm.MODES, 0)
+    want["double"] = FED_ROUNDS * (N_CLIENTS + N_CLIENTS * 1)
+    if launches != want:
+        raise AssertionError(f"federated rounds: launches {launches}, "
+                             f"expected {want}")
+    return worst
+
+
+def run_fed_sparse(dev, model):
+    """One federated sparse round in memory (cnn_flashe_s100_dyn.json:
+    sparsity 0.1, dynamic masking), 10 clients, every one decrypting."""
+    sparsity, args = config_args("cnn_flashe_s100_dyn.json")
+    codec = WeightsCodec(model.params_to_flax(), device=dev)
+    before = codec.flatten(model.params_to_flax())
+    gen = torch.Generator(dev).manual_seed(SEED + 200)
+    flats = [before + 0.01 * torch.randn(before.shape, generator=gen,
+                                         device=dev)
+             for _ in range(N_CLIENTS)]
+    recs = [{} for _ in range(N_CLIENTS)]
+
+    def client(trv, i, role):
+        set_tracker(Tracker(role, synchronize=torch.cuda.synchronize))
+        agg = aggregator.with_role(role, trv, sparsity, "flashe", args,
+                                   device=dev)
+        agg.set_codec(codec)
+        record_sparse_client(agg, recs[i])
+        before_t, t0 = dict(tracker().phase_totals), time.perf_counter()
+        recs[i]["new"] = agg.aggregate_then_get(flats[i], iter_index=0,
+                                                before=before, degree=1.0,
+                                                suffix=(0,))
+        torch.cuda.synchronize()
+        recs[i]["ms"] = (time.perf_counter() - t0) * 1e3
+        recs[i]["phases"] = phase_ms(before_t)
+        recs[i]["choice"] = agg._block.cipher.masking_scheme
+
+    def arbiter(trv):
+        agg = aggregator.with_role("arbiter", trv, sparsity, "flashe", args,
+                                   device=dev)
+        agg.aggregate_and_broadcast(iter_index=0, suffix=(0,))
+
+    torch.cuda.synchronize()
+    reset_launches()
+    run_roles(N_CLIENTS - 1, lambda trv: client(trv, 0, "guest"),
+              lambda trv, h: client(trv, 1 + h, "host"), arbiter,
+              job_id="chip-smoke-sparse", timeout=600)
+    launches = dict(fm.mode_launches)
+
+    choices = {rec["choice"] for rec in recs}
+    if choices != {"single"}:
+        raise AssertionError(f"federated sparse round: choices {choices}, "
+                             "expected single")
+    want = dict.fromkeys(fm.MODES, 0)
+    want.update(single=N_CLIENTS, scatter=N_CLIENTS * N_CLIENTS)
+    if launches != want:
+        raise AssertionError(f"federated sparse round: launches {launches},"
+                             f" expected {want}")
+    total = codec.total
+    dense_q = torch.zeros(total, dtype=torch.int64, device=dev)
+    sent = torch.zeros(total, dtype=torch.float32, device=dev)
+    mean = codec.spread(torch.as_tensor(recs[0]["past_mean"], device=dev))
+    alpha = codec.spread(torch.as_tensor(recs[0]["alpha"], device=dev))
+    for rec in recs:
+        if rec["loc"].shape[0] != N_COMPACT:
+            raise AssertionError(f"{rec['loc'].shape[0]} compact lanes, "
+                                 f"expected {N_COMPACT}")
+        d = torch.full((total,), rec["zero"], dtype=torch.int64, device=dev)
+        d[rec["loc"]] = lanes.as_u32(rec["q"])
+        dense_q += d
+        x = rec["values"] - mean[rec["loc"]]
+        sent[rec["loc"]] += torch.maximum(torch.minimum(x, alpha[rec["loc"]]),
+                                          -alpha[rec["loc"]])
+    for i, rec in enumerate(recs):
+        if not torch.equal(lanes.as_u32(rec["dec"]),
+                           dense_q % (1 << INT_BITS)):
+            raise AssertionError(f"federated sparse round: client {i}'s "
+                                 "decrypted lanes != the densified q "
+                                 f"summed mod 2^{INT_BITS}")
+        if not torch.equal(rec["new"], recs[0]["new"]):
+            raise AssertionError(f"federated sparse round: client {i}'s new "
+                                 "model differs from the guest's")
+    worst = steps_off(recs[0]["new"], before + mean + sent / N_CLIENTS,
+                      2 * alpha / ((1 << ELEMENT_BITS) - 1),
+                      "federated sparse round")
+    return launches, worst, recs
+
+
+def run_fed_paillier(dev, model, n_clients=FED_PAILLIER_CLIENTS):
+    """One federated Paillier round in memory
+    (cnn_paillier_q16_b100_pad.json) with n_clients at full width: the
+    guest generates the 2048-bit key in the run and wraps (p, q) to the
+    hosts; every client decrypts.  Returns the Montgomery launches and
+    what the checks need."""
+    _, args = config_args("cnn_paillier_q16_b100_pad.json")
+    codec = WeightsCodec(model.params_to_flax(), device=dev)
+    flats = client_flats(dev, codec, model, n_clients)
+    recs = [{} for _ in range(n_clients)]
+
+    def client(trv, i, role):
+        set_tracker(Tracker(role))
+        agg = aggregator.with_role(role, trv, 1.0, "paillier", args,
+                                   device=dev)
+        rec = recs[i]
+        rec["n"] = agg._block.cipher.get_n()
+        agg.set_codec(codec)
+        record_client(agg, rec)
+        decrypt = agg._block.cipher.decrypt
+
+        def recorded_sums(cts):
+            rec["sums"] = decrypt(cts)
+            return rec["sums"]
+
+        agg._block.cipher.decrypt = recorded_sums
+        t0 = time.perf_counter()
+        rec["new"] = agg.aggregate_then_get(flats[i], iter_index=0,
+                                            degree=1.0, suffix=(0,))
+        torch.cuda.synchronize()
+        rec["s"] = time.perf_counter() - t0
+        rec["phases"] = phase_ms({})
+
+    def arbiter(trv):
+        agg = aggregator.with_role("arbiter", trv, 1.0, "paillier", args,
+                                   device=dev)
+        agg.aggregate_and_broadcast(iter_index=0, suffix=(0,))
+
+    torch.cuda.synchronize()
+    for k in mg.launches:
+        mg.launches[k] = 0
+    t0 = time.perf_counter()
+    run_roles(n_clients - 1, lambda trv: client(trv, 0, "guest"),
+              lambda trv, h: client(trv, 1 + h, "host"), arbiter,
+              job_id="chip-smoke-paillier", timeout=900)
+    seconds = time.perf_counter() - t0
+    launches = dict(mg.launches)
+
+    n, bits = recs[0]["n"], args["key_length"]
+    if n.bit_length() != bits or {rec["n"] for rec in recs} != {n}:
+        raise AssertionError(f"the clients do not share the guest's "
+                             f"{bits}-bit key")
+    packed = [lanes.lanes_to_ints(rec["q"][0], PAILLIER_BITS) for rec in recs]
+    for i, rec in enumerate(recs):
+        if list(rec["sums"]) != list(sum(packed)):
+            raise AssertionError(f"federated Paillier round: client {i}'s "
+                                 "decrypted sums != the sum of the packed q")
+        if not torch.equal(rec["new"], recs[0]["new"]):
+            raise AssertionError(f"federated Paillier round: client {i}'s "
+                                 "new model differs from the guest's")
+    expect, step = expected_model(codec, recs[0]["past_mean"][0],
+                                  recs[0]["alpha"][0], flats)
+    worst = steps_off(recs[0]["new"], expect, step, "federated Paillier round")
+    ndig = -(-n.bit_length() // 4)
+    per_encrypt = 1 + 15 + 5 * ndig + 1
+    want = {"mont_mul": n_clients * per_encrypt + 2 * n_clients,
+            "mont_mul_vec": 0, "mont_exp_rows": n_clients}
+    if launches != want:
+        raise AssertionError(f"federated Paillier round: launches "
+                             f"{launches}, expected {want}")
+    return launches, seconds, worst, recs
+
+
+def tcp_child(role: str, broker: str, workdir: str) -> int:
+    """One party of the TCP round, in its own process on cuda:0: its
+    session setup and one dense round over the broker at `broker`
+    (host:port), wire_pack on.  Writes what the parent checks to
+    workdir/<role>.pt."""
+    dev = torch.device("cuda", 0)
+    host, port = broker.rsplit(":", 1)
+    inputs = torch.load(Path(workdir) / "inputs.pt", weights_only=False)
+    parties = default_parties(1)
+    party = {"guest": parties[0], "host": parties[1],
+             "arbiter": parties[2]}[role]
+    fed = TcpFederation((host, int(port)), "chip-smoke-tcp", party, parties,
+                        HomoTransferVariables.authorization())
+    trv = HomoTransferVariables(fed)
+    _, args = config_args("cnn_flashe_q16_b1_pad.json")
+    args["wire_pack"] = True
+    reset_launches()
+    t0 = time.perf_counter()
+    agg = aggregator.with_role(role, trv, 1.0, "flashe", args, device=dev)
+    out = {"setup_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    if role == "arbiter":
+        agg.aggregate_and_broadcast(iter_index=0, suffix=(0,))
+    else:
+        i = 0 if role == "guest" else 1
+        codec = WeightsCodec(FemnistCNN(device=dev).params_to_flax(),
+                             device=dev)
+        agg.set_codec(codec)
+        rec = {}
+        record_client(agg, rec)
+        new = agg.aggregate_then_get(inputs["flats"][i].to(dev), iter_index=0,
+                                     degree=1.0, suffix=(0,))
+        out.update(idx=agg._block.cipher.idx, q=rec["q"][0].cpu(),
+                   dec=rec["dec"][0].cpu(), new=new.cpu(),
+                   past_mean=rec["past_mean"][0], alpha=rec["alpha"][0])
+    torch.cuda.synchronize()
+    out.update(round_s=time.perf_counter() - t0,
+               launches=dict(fm.mode_launches), stats=fed.stats.summary())
+    torch.save(out, Path(workdir) / f"{role}.pt")
+    fed.close()
+    return 0
+
+
+def run_tcp_round(dev, model):
+    """The dense round across processes: the port's FedBroker on
+    127.0.0.1 in this process, then the guest, one host and the arbiter as
+    three child processes (this script with --tcp-role), each on cuda:0
+    with the kernels already built.  A child that fails, or the three
+    running past 600 s, fails the run; every child is stopped."""
+    codec = WeightsCodec(model.params_to_flax(), device=dev)
+    flats = client_flats(dev, codec, model, 2)
+    broker = FedBroker("127.0.0.1", 0)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tcp_")
+    procs = []
+    try:
+        torch.save({"flats": [f.cpu() for f in flats]},
+                   Path(workdir) / "inputs.pt")
+        addr = f"{broker.address[0]}:{broker.address[1]}"
+        t0 = time.perf_counter()
+        for role in ("guest", "host", "arbiter"):
+            procs.append((role, subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--tcp-role", role, "--broker", addr, "--workdir", workdir],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        deadline = time.monotonic() + 600
+        while any(p.poll() is None for _, p in procs):
+            failed = [(r, p) for r, p in procs
+                      if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                what = (f"the {failed[0][0]} child exited {failed[0][1].returncode}"
+                        if failed else "the children ran past 600 s")
+                for _, p in procs:
+                    p.kill()
+                logs = {r: p.communicate()[0][-3000:] for r, p in procs}
+                raise AssertionError(f"TCP round: {what}; output: {logs}")
+            time.sleep(0.2)
+        seconds = time.perf_counter() - t0
+        for role, p in procs:
+            if p.returncode != 0:
+                raise AssertionError(f"TCP round: the {role} child exited "
+                                     f"{p.returncode}: "
+                                     f"{p.communicate()[0][-3000:]}")
+        res = {role: torch.load(Path(workdir) / f"{role}.pt",
+                                weights_only=False)
+               for role, _ in procs}
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        broker.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    g, h = res["guest"], res["host"]
+    if (g["idx"], h["idx"]) != (0, 1):
+        raise AssertionError(f"TCP round: ordinals {g['idx']}, {h['idx']}")
+    want = qsum([g["q"], h["q"]])
+    for role in ("guest", "host"):
+        if not torch.equal(lanes.as_u32(res[role]["dec"]), want):
+            raise AssertionError(f"TCP round: the {role}'s decrypted lanes "
+                                 f"!= the summed q mod 2^{INT_BITS}")
+        double = dict.fromkeys(fm.MODES, 0)
+        double["double"] = 2
+        if res[role]["launches"] != double:
+            raise AssertionError(f"TCP round: the {role} launched "
+                                 f"{res[role]['launches']}, expected {double}")
+    if any(res["arbiter"]["launches"].values()):
+        raise AssertionError("TCP round: the arbiter launched a kernel")
+    if not torch.equal(g["new"], h["new"]):
+        raise AssertionError("TCP round: the two clients' new models differ")
+    expect, step = expected_model(codec, g["past_mean"], g["alpha"], flats)
+    worst = steps_off(g["new"].to(dev), expect, step, "TCP round")
+    up = res["host"]["stats"]["host_to_arbiter"]["sent_bytes"]
+    packed = ModelPayload(h["q"], N_FEMNIST, INT_BITS).pack().wire_bytes()
+    if packed != TCP_PACKED_BYTES or not packed < up < packed + 65536:
+        raise AssertionError(f"TCP round: the host sent {up} wire bytes to "
+                             f"the arbiter, the packed upload {packed}")
+    return seconds, worst, res, packed
+
+
 def mask_bound(count, card, m=INT_BITS, streams=2, sectors=None):
     """The mask kernel's bound at `count` lanes of m bits and `streams`
     mask streams: that many T-table AES-256 blocks for every 128 // m
@@ -1256,15 +1782,22 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--times", action="store_true", help=(
         "build the kernels and time the mask kernel and the Montgomery "
-        "kernels at their paths' shapes (phase 6) only, with no other phase "
+        "kernels at their paths' shapes (phase 9) only, with no other phase "
         "and no result line; in a copy of the tree with another "
         "csrc/flashe_mask.cu or csrc/montgomery.cu, this times that source "
         "against the same bounds"))
+    ap.add_argument("--tcp-role", choices=("guest", "host", "arbiter"),
+                    help="run one party of the TCP round (started by the "
+                    "script itself)")
+    ap.add_argument("--broker", help="the TCP round's broker, host:port")
+    ap.add_argument("--workdir", help="the TCP round's exchange directory")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this check runs on "
               "the card only", file=sys.stderr)
         return 2
+    if args.tcp_role:
+        return tcp_child(args.tcp_role, args.broker, args.workdir)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1355,6 +1888,26 @@ def main(argv=None) -> int:
         raise AssertionError(f"card logits differ from the CPU's by {dlog}")
     print(f"new global FemnistCNN forward: (4, 62) finite logits, "
           f"max |card - cpu| = {dlog:.2e}")
+    # the layer statistics that set every client's clip thresholds: the
+    # same bits on every call on the card, and within float32 rounding of
+    # the same statistics in float64
+    codec = r["codec"]
+    stats = [codec.layer_mean_std(r["new"]) for _ in range(3)]
+    for got in stats[1:]:
+        if not all(torch.equal(a, b) for a, b in zip(got, stats[0])):
+            raise AssertionError("layer_mean_std differs between two calls "
+                                 "on the card")
+    x = r["new"].double().cpu()
+    ref = [(p.mean(), p.std(unbiased=False))
+           for p in x.split(codec.sizes)]
+    for k, (m, sd) in enumerate(ref):
+        gm, gs = float(stats[0][0][k]), float(stats[0][1][k])
+        if abs(gm - float(m)) > 1e-6 or abs(gs - float(sd)) > 1e-4 * float(sd):
+            raise AssertionError(f"layer {k}: layer_mean_std on the card "
+                                 f"({gm}, {gs}) is off the float64 "
+                                 f"statistics ({float(m)}, {float(sd)})")
+    print("layer_mean_std on the card: the same bits in 3 calls, within "
+          "1e-6 (means) and rtol 1e-4 (stds) of the float64 statistics")
 
     # timings: the kernel against its plain version, the 10-ciphertext sum,
     # bench.py's metric n / (one encrypt + the sum + the decrypt), and the
@@ -1412,6 +1965,64 @@ def main(argv=None) -> int:
     small_launches = check_small_decrypt(dev, keypair, r)
     print(f"5-row decrypt: launches {small_launches} (single per-row-modulus"
           f" products), equal to the full decrypt's first 5")
+
+    # the federated rounds: the roles of protocol/aggregator.py over the
+    # in-memory federation (one thread each) and over TCP (one process each)
+    fed_launches, fed_s, r = run_fed_dense(dev, model)
+    fed_worst = check_fed_dense(fed_launches, r)
+    print(f"federated FLASHE rounds in memory (cnn_flashe_q16_b1_pad.json, "
+          f"guest + {N_CLIENTS - 1} hosts + arbiter, one thread each, uuid + "
+          f"DH + seed wrap): {FED_ROUNDS} rounds in {fed_s:.2f} s; client "
+          f"{N_CLIENTS - 1} asleep past the {FED_TIMEOUT_S} s deadline in "
+          f"round 1, dropped, notified with the aggregate, back in round 2; "
+          f"every client decrypted == the survivors' sum(q) mod 2^{INT_BITS}"
+          f" and holds the same model, within "
+          f"{[round(w, 3) for w in fed_worst]} steps of the survivors' "
+          f"mean; launches {fed_launches} (= {FED_ROUNDS} x ({N_CLIENTS} "
+          f"encrypts + {N_CLIENTS} clients x 1 boundary pair))")
+    for rnd in range(FED_ROUNDS):
+        guest, arb = r["recs"][0], r["arbiter"][rnd]
+        print(f"federated round {rnd} by phase (host clock, a synchronize "
+              f"at each phase's ends; the core round above: "
+              f"{statistics.median(round_ms):.2f} ms): guest "
+              f"{guest['round_ms'][rnd]:.2f} ms (" + ", ".join(
+                  f"{k} {v:.3f}" for k, v in guest["phases"][rnd].items())
+              + f"); arbiter {arb['ms']:.2f} ms (" + ", ".join(
+                  f"{k} {v:.3f}" for k, v in arb["phases"].items())
+              + "); clients' rounds " + str(
+                  [round(rec["round_ms"][rnd], 1) for rec in r["recs"]]))
+    sparse_fed_launches, sparse_worst, recs = run_fed_sparse(dev, model)
+    print(f"federated sparse round in memory (cnn_flashe_s100_dyn.json, 10 "
+          f"clients): choice single at every client, launches "
+          f"{sparse_fed_launches} (= 10 single + 10 clients x 10 scatters), "
+          f"every client decrypted == the densified sum(q) mod 2^{INT_BITS}"
+          f" and holds the same model, within {sparse_worst:.3f} steps of "
+          f"what the clients sent; guest {recs[0]['ms']:.1f} ms ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in recs[0]["phases"].items())
+          + ")")
+    pl_fed_launches, pl_fed_s, pl_worst, recs = run_fed_paillier(dev, model)
+    print(f"federated Paillier round in memory (cnn_paillier_q16_b100_pad."
+          f"json, {FED_PAILLIER_CLIENTS} clients at full width, 2048-bit key "
+          f"generated by the guest and wrapped to the hosts): "
+          f"{pl_fed_s:.2f} s with the session setup; every client's "
+          f"decrypted sums == the sum of the packed q, same model within "
+          f"{pl_worst:.3f} steps of the mean; launches {pl_fed_launches}; "
+          f"guest " + ", ".join(f"{k} {v / 1e3:.3f} s"
+                                for k, v in recs[0]["phases"].items()))
+    tcp_s, tcp_worst, tcp, packed = run_tcp_round(dev, model)
+    print(f"TCP round across processes (FedBroker on 127.0.0.1, guest, host "
+          f"and arbiter each a process on cuda:0, wire_pack): {tcp_s:.2f} s "
+          f"for the three, round {tcp['guest']['round_s'] * 1e3:.1f} ms at "
+          f"the guest after a {tcp['guest']['setup_s']:.2f} s session setup;"
+          f" decrypted == sum(q) mod 2^{INT_BITS} at both clients, same "
+          f"model within {tcp_worst:.3f} steps of the mean; launches 2 "
+          f"double at each client, 0 at the arbiter; the upload packed "
+          f"{packed} bytes; TransferStat wire bytes: " + ", ".join(
+              f"{role} {name} {row['sent_bytes']}"
+              for role in ("guest", "host", "arbiter")
+              for name, row in tcp[role]["stats"].items()
+              if name != "__total__" and row["sent_bytes"] > 100_000))
+
     paths = time_paths(dev, keypair, card)
     mont_times, rate = time_montgomery(dev, keypair)
     # the 2,048-row plain time stands in for mont_exp_rows', whose plain
@@ -1449,6 +2060,8 @@ def main(argv=None) -> int:
         "replaces": "flashe_tpu/ops/pallas_flashe.py:79",
         "launches": main_launches,
         "launches_per_round": main_launches,
+        "launches_federated": fed_launches["double"],
+        "launches_per_federated_round": fed_launches["double"] // FED_ROUNDS,
         "max_abs_err": max_err,
         "ms": times[N_FEMNIST][0],
         "host_calls_ms": times[N_FEMNIST][2],
@@ -1466,6 +2079,7 @@ def main(argv=None) -> int:
         "path": path,
         "launches": launched,
         "launches_per_round": launched,
+        "launches_federated": sparse_fed_launches[err_key],
         "max_abs_err": mode_err[err_key],
         "ms": mode_times[name]["ms"],
         "host_calls_ms": mode_times[name]["host_calls_ms"],
@@ -1481,6 +2095,7 @@ def main(argv=None) -> int:
         "replaces": replaces,
         "launches": path[name],
         "launches_per_round": per_round,
+        "launches_federated": pl_fed_launches[name],
         "max_abs_err": mont_err[name],
         "ms": paths[name]["ms"],
         "plain_ms": paths[name]["plain_ms"],

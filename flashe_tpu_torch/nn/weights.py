@@ -55,11 +55,18 @@ class WeightsCodec:
                                   0, self.segment_ids)
 
     def layer_mean_std(self, flat: torch.Tensor):
-        """Per-layer mean and std of a flat vector -> ((L,), (L,))."""
-        zeros = torch.zeros(self.n_layers, dtype=flat.dtype,
-                            device=flat.device)
-        s1 = zeros.index_add(0, self.segment_ids, flat)
-        s2 = zeros.index_add(0, self.segment_ids, flat * flat)
+        """Per-layer mean and std of a flat vector -> ((L,), (L,)).
+
+        The sums are taken a layer at a time over its contiguous slice,
+        the same bits on every call and every device.  (An index_add on
+        the card sums with atomics in no fixed order, so clients that
+        decode one global model would derive clip thresholds that differ
+        in their last bits, and their next models would differ.)  The
+        order differs from jax.ops.segment_sum's, so the result agrees with
+        the JAX package's to rounding, not bit for bit."""
+        both = torch.stack((flat, flat * flat))
+        s1, s2 = torch.stack([part.sum(dim=1) for part in
+                              both.split(self.sizes, dim=1)], dim=1)
         mean = s1 / self._sizes_f
         var = torch.clamp(s2 / self._sizes_f - mean * mean, min=0.0)
         return mean, torch.sqrt(var)

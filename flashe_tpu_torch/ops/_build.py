@@ -20,6 +20,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 __all__ = ["NVCC_FLAGS", "build_dir", "nvcc_path", "compile_so", "load",
@@ -72,14 +73,24 @@ def _lib_path(name: str) -> Path:
     return build_dir() / f"lib{name}_{digest}.so"
 
 
+_load_locks = collections.defaultdict(threading.Lock)
+
+
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """Compile csrc/<name>.cu if its library is missing or stale; load it."""
+def _load(name: str) -> ctypes.CDLL:
     lib = _lib_path(name)
     if not lib.exists():
         log = compile_so(_SRC / f"{name}.cu", lib)
         lib.with_suffix(".log").write_text(log)
     return ctypes.CDLL(str(lib))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Compile csrc/<name>.cu if its library is missing or stale; load it.
+    Threads that ask for one source at once build it once; two sources
+    build side by side."""
+    with _load_locks[name]:
+        return _load(name)
 
 
 def build_log(name: str) -> str:

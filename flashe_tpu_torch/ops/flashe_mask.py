@@ -16,13 +16,17 @@ memory; a failed build or launch raises.  On a CPU tensor it runs the plain
 torch version (`mask_apply_ref`, `mask_scatter_ref`), which the tests hold
 against the JAX package.  `launches` counts the kernel's launches and
 `mode_launches` the launches of each mode: "double" (both streams, m <=
-32), "single" (one stream, m <= 32), "limbs" (m > 32) and "scatter".
+32), "single" (one stream, m <= 32), "limbs" (m > 32) and "scatter".  The
+counts are bumped under a lock, since the roles of a federated round
+launch from threads of one process, and each launch runs with its tensor's
+device made current, on that device's current stream.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -37,6 +41,7 @@ __all__ = ["mask_apply", "mask_apply_ref", "mask_scatter", "mask_scatter_ref",
 MODES = ("double", "single", "limbs", "scatter")
 launches = 0
 mode_launches = dict.fromkeys(MODES, 0)
+_count_lock = threading.Lock()
 
 
 def _check_streams(add_idx, minus_idx):
@@ -131,8 +136,9 @@ def _check_keys(rk: torch.Tensor, device: torch.device):
 
 def _count(mode: str):
     global launches
-    launches += 1
-    mode_launches[mode] += 1
+    with _count_lock:
+        launches += 1
+        mode_launches[mode] += 1
 
 
 def _launch(q: torch.Tensor, rk: torch.Tensor, iter_index, add_idx, minus_idx,
@@ -149,20 +155,22 @@ def _launch(q: torch.Tensor, rk: torch.Tensor, iter_index, add_idx, minus_idx,
     out = torch.empty_like(q)
     if q.shape[0] == 0:
         return out
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    te0 = _te0(q.device).data_ptr()
-    if nl == 1 and add_idx is not None and minus_idx is not None:
-        rc, mode = _kernel()(q.data_ptr(), out.data_ptr(), q.shape[0],
-                             rk.data_ptr(), int(iter_index), int(add_idx),
-                             int(minus_idx), int_bits, int(base_block),
-                             stream, te0), "double"
-    else:
-        streams = (add_idx is not None) | (minus_idx is not None) << 1
-        rc = _modes_kernel()(q.data_ptr(), out.data_ptr(), q.shape[0],
-                             rk.data_ptr(), int(iter_index),
-                             int(add_idx or 0), int(minus_idx or 0), streams,
-                             int_bits, int(base_block), None, 0, stream, te0)
-        mode = "single" if nl == 1 else "limbs"
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        te0 = _te0(q.device).data_ptr()
+        if nl == 1 and add_idx is not None and minus_idx is not None:
+            rc, mode = _kernel()(q.data_ptr(), out.data_ptr(), q.shape[0],
+                                 rk.data_ptr(), int(iter_index), int(add_idx),
+                                 int(minus_idx), int_bits, int(base_block),
+                                 stream, te0), "double"
+        else:
+            streams = (add_idx is not None) | (minus_idx is not None) << 1
+            rc = _modes_kernel()(q.data_ptr(), out.data_ptr(), q.shape[0],
+                                 rk.data_ptr(), int(iter_index),
+                                 int(add_idx or 0), int(minus_idx or 0),
+                                 streams, int_bits, int(base_block), None, 0,
+                                 stream, te0)
+            mode = "single" if nl == 1 else "limbs"
     if rc != 0:
         raise RuntimeError(f"flashe_mask kernel launch failed: CUDA error {rc}")
     _count(mode)
@@ -220,12 +228,13 @@ def mask_scatter(out: torch.Tensor, loc: torch.Tensor, rk: torch.Tensor,
     if loc.shape[0] == 0:
         return out
     streams = 2 | (add_idx is not None)
-    rc = _modes_kernel()(None, out.data_ptr(), loc.shape[0], rk.data_ptr(),
-                         int(iter_index), int(add_idx or 0), int(minus_idx),
-                         streams, int_bits, int(base_block), loc.data_ptr(),
-                         out.shape[0],
-                         torch.cuda.current_stream(out.device).cuda_stream,
-                         _te0(out.device).data_ptr())
+    with torch.cuda.device(out.device):
+        rc = _modes_kernel()(
+            None, out.data_ptr(), loc.shape[0], rk.data_ptr(),
+            int(iter_index), int(add_idx or 0), int(minus_idx), streams,
+            int_bits, int(base_block), loc.data_ptr(), out.shape[0],
+            torch.cuda.current_stream(out.device).cuda_stream,
+            _te0(out.device).data_ptr())
     if rc != 0:
         raise RuntimeError(f"flashe_mask scatter launch failed: CUDA error "
                            f"{rc}")

@@ -15,7 +15,9 @@ flashe_tpu_torch/csrc/montgomery.cu and a plain torch version beside it:
 n' is -n^-1 mod 2^32 in every argument.  Operands must be below their
 modulus; results are fully reduced, so kernel and plain version agree limb
 for limb.  On a CPU tensor each function runs its plain version; on a CUDA
-tensor it launches its kernel or raises, and adds one to `launches[name]`.
+tensor it launches its kernel on that tensor's device (made current for the
+launch) or raises, and adds one to `launches[name]` under a lock: the roles
+of a federated round launch from threads of one process.
 
 The plain versions view each 32-bit limb as two 16-bit digits and run the
 JAX package's lazy CIOS (flashe_tpu/ops/modmath.py::mont_mul) exactly, in
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +46,7 @@ WINDOW = 4  # exponent digit width of mont_exp_rows
 MAX_LIMBS = 128  # 4096-bit moduli: 16 threads a row, 8 limbs a thread
 
 launches = {"mont_mul": 0, "mont_mul_vec": 0, "mont_exp_rows": 0}
+_count_lock = threading.Lock()  # roles launch from threads of one process
 
 _DBITS = 16
 _DMASK = (1 << _DBITS) - 1
@@ -225,14 +229,20 @@ def _route(name: str, a: torch.Tensor) -> bool:
     return True
 
 
+def _count(name: str):
+    with _count_lock:
+        launches[name] += 1
+
+
 def _launch(name: str, out: torch.Tensor, *args):
     if out.shape[0] == 0:
         return out
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    rc = getattr(_lib(), name)(*args, stream)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        rc = getattr(_lib(), name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    launches[name] += 1
+    _count(name)
     return out
 
 

@@ -211,4 +211,4 @@ def test_cuda_request_without_a_card_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pp.PaillierCipher(device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        pblocks.Arbiter(0xFFFFFFFB, device="cuda")
+        pblocks.Arbiter(ARGS, device="cuda")

@@ -3,7 +3,10 @@
 - It imports nothing of the JAX package and no jax, and neither does
   chip_smoke.py, which runs on a machine without them.
 - Its ACIQ is a copy of the JAX package's, value for value.
-- Its entry points run on the card unless the caller asks for the CPU.
+- Its entry points run on the card unless the caller asks for the CPU: the
+  ciphers, the codec and model, the quantizer, the session blocks, the
+  federated round's roles (`with_role`, the role classes) and the roles
+  that run_roles runs.
 """
 
 from __future__ import annotations
@@ -23,8 +26,12 @@ from flashe_tpu_torch.crypto.paillier import PaillierCipher, PaillierKeypair
 from flashe_tpu_torch.nn.models import FemnistCNN
 from flashe_tpu_torch.nn.weights import WeightsCodec
 from flashe_tpu_torch.ops.modmath import MontCtx, PairMontCtx
+from flashe_tpu_torch.protocol import aggregator
+from flashe_tpu_torch.protocol.blocks import flashe as fblocks
 from flashe_tpu_torch.protocol.blocks import paillier as pblocks
+from flashe_tpu_torch.protocol.blocks import plain as plblocks
 from flashe_tpu_torch.protocol.blocks.flashe import choose_masking
+from flashe_tpu_torch.runtime.simulate import run_roles
 from flashe_tpu_torch.quant import aciq as paciq
 from flashe_tpu_torch.quant import quantizer as pquant
 
@@ -55,6 +62,10 @@ def test_port_and_chip_smoke_import_no_jax_package():
     assert "flashe_tpu_torch.quant.aciq" in out["modules"]
     assert "flashe_tpu_torch.ops.montgomery" in out["modules"]
     assert "flashe_tpu_torch.protocol.sparsify" in out["modules"]
+    for name in ("fed.tcp", "fed.inmem", "fed.variables", "crypto.aes_host",
+                 "crypto.dh", "protocol.payload", "protocol.dh_sync",
+                 "protocol.blocks.plain", "runtime.simulate"):
+        assert f"flashe_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
 
@@ -101,19 +112,36 @@ def _constructors():
         "PairMontCtx": lambda: PairMontCtx(n, n + 2),
         "QuantizingClient": lambda: pquant.QuantizingClient(
             20, False, 16, True, True),
-        "Arbiter": lambda: pblocks.Arbiter(n),
+        "Arbiter": lambda: pblocks.Arbiter(_ARGS),
         "Guest": lambda: pblocks.Guest(_ARGS),
         "Host": lambda: pblocks.Host(_ARGS),
         "make_session": lambda: pblocks.make_session(_ARGS, 2,
                                                      keypair=keypair),
         "choose_masking": lambda: choose_masking([[0]], 2),
+        "flashe.Arbiter": lambda: fblocks.Arbiter(_ARGS),
+        "flashe.Guest": lambda: fblocks.Guest(_ARGS),
+        "flashe.Host": lambda: fblocks.Host(_ARGS),
+        "plain.Arbiter": lambda: plblocks.Arbiter(_ARGS),
+        "plain.Guest": lambda: plblocks.Guest(_ARGS),
+        "plain.Host": lambda: plblocks.Host(_ARGS),
+        "aggregator.Arbiter": lambda: aggregator.Arbiter(),
+        "aggregator.Guest": lambda: aggregator.Guest(),
+        "aggregator.Host": lambda: aggregator.Host(),
+        "with_role": lambda: aggregator.with_role("guest", None),
+        "run_roles": lambda: run_roles(
+            1, lambda trv: aggregator.with_role("guest", trv),
+            lambda trv, h: aggregator.with_role("host", trv),
+            lambda trv: aggregator.with_role("arbiter", trv), timeout=30),
     }
 
 
 @pytest.mark.parametrize("name", [
     "FlasheCipher", "PaillierCipher", "FemnistCNN", "WeightsCodec",
     "MontCtx", "PairMontCtx", "QuantizingClient", "Arbiter", "Guest", "Host",
-    "make_session", "choose_masking"])
+    "make_session", "choose_masking", "flashe.Arbiter", "flashe.Guest",
+    "flashe.Host", "plain.Arbiter", "plain.Guest", "plain.Host",
+    "aggregator.Arbiter", "aggregator.Guest", "aggregator.Host",
+    "with_role", "run_roles"])
 def test_entry_points_default_to_the_card(name):
     """Called with no device, each entry point asks for the card: on a host
     without one it raises and never carries on on the CPU."""
