@@ -8,7 +8,8 @@ Phases, each of which fails the run:
      one nvcc each, in parallel, for sm_90a;
   2. hold the mask kernel against its plain torch version on the card: a
      grid of int_bits (1 to 32) x lane counts x counter offsets, bit-exact:
-     counts on both sides of one warp's span and of one pass of the
+     the lane counts of the training path's three models, counts on both
+     sides of one warp's span and of one pass of the
      kernel's resident grid (both asked of the built library), counts that
      are no multiple of the lanes a block, offsets whose low counter word
      wraps and that are negative as int64; plus the FIPS-197 AES-256
@@ -93,7 +94,27 @@ Phases, each of which fails the run:
      lanes, the scatter at 120,655 locations in 1,206,590 lanes, 120-bit
      limbs at 201,099 lanes), over CUDA graphs and over host calls; the
      sparse round by phase; then the Montgomery kernels again at 2,048
-     rows.
+     rows;
+ 10. federated training (run between phases 8 and 9), as `python -m
+     flashe_tpu_torch submit` runs it: HomoNNGuest, 9 HomoNNHosts and
+     HomoNNArbiter, one thread each over run_roles, data from the port's
+     federated_dataset, with torch's own TF32 settings:
+     cnn_flashe_q16_b1_pad.json as it stands (FemnistCNN, 10 clients x 128
+     samples, batch 128, Adam at lr 5e-4, 2 iterations), and
+     resnet_flashe_q16_b1_pad.json and lstm_flashe_q16_b1_pad.json, also
+     as they stand (2 iterations each).  Every loss_per_round entry must be
+     finite, in every iteration every client's decrypted lanes must equal
+     the clients' summed quantized uploads mod 2^int_bits, every client
+     must hold the same model, bit for bit, after each aggregation, the
+     mask kernel must run 10 encrypts + 10 clients x 1
+     boundary pair of double launches an iteration (and no other kernel),
+     and each client's parameters and optimizer state must lie on the card.
+     Then one client alone on its 128 FEMNIST samples takes 20 full-batch
+     Adam steps at lr 5e-4: the mean of its last 5 losses must lie below
+     that of its first 5.  It prints the guest's phases an iteration (the
+     first a warm-up, holding each thread's first cuDNN and cuBLAS calls;
+     the second steady) and the local training rate (host clock, a
+     synchronize at each phase's ends).
 It prints ptxas's registers and spills of every kernel instance after the
 build and, where the toolkit has cuobjdump, the mask kernel's instruction
 counts; the kernels' JSON line and the card's name and power limit, then as
@@ -115,6 +136,8 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
+import io
 import json
 import random
 import shutil
@@ -122,6 +145,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -132,8 +156,12 @@ from flashe_tpu_torch.crypto.flashe import FlasheCipher, merge_idx_runs
 from flashe_tpu_torch.fed.tcp import FedBroker, TcpFederation
 from flashe_tpu_torch.fed.transport import default_parties
 from flashe_tpu_torch.fed.variables import HomoTransferVariables
+from flashe_tpu_torch.__main__ import main as cli_main
 from flashe_tpu_torch.crypto.paillier import PaillierKeypair
-from flashe_tpu_torch.nn.models import FemnistCNN
+from flashe_tpu_torch.data import federated_dataset
+from flashe_tpu_torch.nn.homo_nn import HomoNNArbiter, HomoNNGuest, HomoNNHost
+from flashe_tpu_torch.nn.models import FemnistCNN, init_params
+from flashe_tpu_torch.nn.trainer import LocalTrainer
 from flashe_tpu_torch.nn.weights import WeightsCodec
 from flashe_tpu_torch.ops import _build, aes, lanes, masks, modmath
 from flashe_tpu_torch.ops import flashe_mask as fm
@@ -148,8 +176,10 @@ from flashe_tpu_torch.protocol.blocks.flashe import arbiter_masking
 from flashe_tpu_torch.protocol.payload import ModelPayload
 from flashe_tpu_torch.protocol.sparsify import Sparsifier, decode_locations
 from flashe_tpu_torch.quant.quantizer import QuantizingClient
+from flashe_tpu_torch.runtime.config import HomoNNParam
 from flashe_tpu_torch.runtime.simulate import run_roles
-from flashe_tpu_torch.runtime.tracking import Tracker, set_tracker, tracker
+from flashe_tpu_torch.runtime.tracking import (
+    Tracker, phase, set_tracker, tracker)
 from flashe_tpu_torch.tools import roofline
 
 INT_BITS, ELEMENT_BITS, N_CLIENTS = 20, 16, 10
@@ -158,7 +188,9 @@ SEED = 0x0F1A5E
 GRID_INT_BITS = (1, 8, 16, 20, 25, 31, 32)
 # to these check_kernel_grid adds, for each int_bits, the lane counts one
 # short of and one past a warp's span and one pass of the resident grid
-GRID_COUNTS = (1, 5, 7, 3000, 1_206_590, 4_194_304)
+# lanes; 175,066, 817,872 and 1,206,590 are the training path's models
+# (CifarResNet, CharLSTM, FemnistCNN)
+GRID_COUNTS = (1, 5, 7, 3000, 175_066, 817_872, 1_206_590, 4_194_304)
 # the low counter word wraps at 2^32 - 2; -3 runs through 2^64 to 0
 GRID_BASES = (0, 3, 96, 2**32 - 2, -3)
 N_FEMNIST = 1_206_590
@@ -184,6 +216,16 @@ B_BITS, B_FACTOR, B_LANES, B_PARAMS = 120, 4, 201_099, 201_101
 FED_ROUNDS, FED_TIMEOUT_S, FED_SLEEP_S = 3, 2.0, 3.0
 FED_PAILLIER_CLIENTS = 3
 TCP_PACKED_BYTES = 3_016_475  # ceil(1,206,590 x 20 / 8)
+
+# phase 10, federated training: each configuration, run as it stands, with
+# its model's parameter count; the single client's full-batch steps; the
+# guest's phases printed
+TRAIN_CONFIGS = (("cnn_flashe_q16_b1_pad.json", 1_206_590),
+                 ("resnet_flashe_q16_b1_pad.json", 175_066),
+                 ("lstm_flashe_q16_b1_pad.json", 817_872))
+TRAIN_STEPS = 20
+TRAIN_PHASES = ("local train", "encoding", "encryption", "upload",
+                "download", "decryption", "decoding")
 
 # the Paillier configuration, examples/configs/cnn_paillier_q16_b100_pad.json
 PAILLIER_ARGS = {"key_length": 2048, "quantize": {
@@ -1718,6 +1760,251 @@ def run_tcp_round(dev, model):
     return seconds, worst, res, packed
 
 
+def run_training(dev, name):
+    """Phase 10: examples/configs/<name> as `python -m flashe_tpu_torch
+    submit` runs it (HomoNNGuest, HomoNNHost x (n - 1) and HomoNNArbiter,
+    one thread each over run_roles, data from the port's
+    federated_dataset), on `dev`.  Each client records its quantized
+    upload and its decrypted lanes every iteration (record_client, on the
+    aggregator its fit makes) and its model after every aggregation, the
+    guest its phases an iteration (a synchronize at each phase's ends,
+    local training timed as a phase of its own).  Returns the mask
+    kernel's launches by mode and the Montgomery kernels', and what the
+    checks need."""
+    with open(ROOT / "examples" / "configs" / name) as f:
+        cfg = json.load(f)
+    param = HomoNNParam.from_dict(cfg["param"])
+    n = cfg["n_clients"]
+    shards = federated_dataset(cfg["dataset"], n, cfg["samples_per_client"],
+                               seed=cfg.get("seed", 0))
+    recs = [{"models": [], "phases": []} for _ in range(n)]
+    local = threading.local()
+    with_role = aggregator.with_role
+
+    def recorded_with_role(role, *args, **kw):
+        agg = with_role(role, *args, **kw)
+        if role != "arbiter":
+            record_client(agg, local.rec)
+        return agg
+
+    def client(cls, trv, i):
+        rec = local.rec = recs[i]
+        if i == 0:
+            set_tracker(Tracker("guest", synchronize=torch.cuda.synchronize))
+        c = cls(param, seed=i, device=dev)
+        c._build(shards[i][0][:1])
+        train, install = c.trainer.train, c.trainer.set_model_weights
+        marks = []
+
+        def timed_train(*args, **kw):
+            marks.append(dict(tracker().phase_totals))
+            with phase("local train"):
+                return train(*args, **kw)
+
+        def recorded_install(params):
+            install(params)
+            rec["models"].append(c.codec.flatten(c.trainer.params))
+
+        c.trainer.train = timed_train
+        c.trainer.set_model_weights = recorded_install
+        c.fit(trv, *shards[i])
+        marks.append(dict(tracker().phase_totals))
+        rec["phases"] = [{k: (v - a.get(k, 0.0)) * 1e3 for k, v in b.items()
+                          if v > a.get(k, 0.0)}
+                         for a, b in zip(marks, marks[1:])]
+        model, opt = c.trainer.model, c.trainer.optimizer
+        rec["on_card"] = (
+            all(t.is_cuda for t in model.parameters())
+            and len(opt.state) == len(list(model.parameters()))
+            and all(v.is_cuda for s in opt.state.values()
+                    for v in s.values() if torch.is_tensor(v)))
+        rec["n_params"] = c.codec.total
+
+    def arbiter(trv):
+        return HomoNNArbiter(param, device=dev).fit(trv)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    for k in mg.launches:
+        mg.launches[k] = 0
+    aggregator.with_role = recorded_with_role
+    try:
+        t0 = time.perf_counter()
+        res = run_roles(n - 1, lambda trv: client(HomoNNGuest, trv, 0),
+                        lambda trv, h: client(HomoNNHost, trv, 1 + h),
+                        arbiter, job_id=f"chip-smoke-train-{name}",
+                        timeout=600)
+        seconds = time.perf_counter() - t0
+    finally:
+        aggregator.with_role = with_role
+    return dict(fm.mode_launches), dict(mg.launches), seconds, dict(
+        losses=res["arbiter"], recs=recs, param=param, n=n,
+        samples=cfg["samples_per_client"])
+
+
+def check_training(name, launches, mont, r, n_params):
+    """Finite losses; in every iteration every client's decrypted lanes
+    equal to the clients' summed q mod 2^int_bits (no client is dropped);
+    every client the same model bit for bit after each aggregation; 10
+    encrypts + 10 clients x 1 boundary pair of double launches an
+    iteration and nothing else; every client's parameters and optimizer
+    state on the card."""
+    iters, recs = r["param"].max_iter, r["recs"]
+    int_bits = r["param"].secure_aggregate_args.quantize.int_bits
+    losses = r["losses"]
+    if len(losses) != iters or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: loss_per_round {losses}")
+    for i, rec in enumerate(recs):
+        if (len(rec["models"]) != iters or len(rec["q"]) != iters
+                or len(rec["dec"]) != iters or rec["n_params"] != n_params):
+            raise AssertionError(f"{name}: client {i} uploaded "
+                                 f"{len(rec['q'])}, decrypted "
+                                 f"{len(rec['dec'])} and installed "
+                                 f"{len(rec['models'])} models of "
+                                 f"{rec['n_params']} parameters")
+        if not rec["on_card"]:
+            raise AssertionError(f"{name}: client {i}'s parameters or "
+                                 "optimizer state are not on the card")
+    for it in range(iters):
+        want = qsum([rec["q"][it] for rec in recs], int_bits)
+        for i, rec in enumerate(recs):
+            if not torch.equal(lanes.as_u32(rec["dec"][it]), want):
+                raise AssertionError(f"{name}: iteration {it}: client {i}'s "
+                                     "decrypted lanes != the clients' "
+                                     f"summed q mod 2^{int_bits}")
+            if not torch.equal(rec["models"][it], recs[0]["models"][it]):
+                raise AssertionError(f"{name}: after aggregation {it}, "
+                                     f"client {i}'s model differs from the "
+                                     "guest's")
+    want = dict.fromkeys(fm.MODES, 0)
+    want["double"] = iters * 2 * r["n"]
+    if launches != want or any(mont.values()):
+        raise AssertionError(f"{name}: launches {launches} and {mont}, "
+                             f"expected {want} and no Montgomery kernel")
+
+
+def run_submit(name):
+    """`python -m flashe_tpu_torch submit -c examples/configs/<name>
+    --json` in this process, on the card: its JSON must hold the
+    configuration's max_iter finite losses and the guest's phases, and the
+    mask kernel must run 2 double launches a client an iteration (its
+    encrypt and its decrypt's boundary pair) and nothing else.
+    Returns the launches by kernel and mode, the seconds and the JSON."""
+    with open(ROOT / "examples" / "configs" / name) as f:
+        cfg = json.load(f)
+    iters = cfg["param"]["max_iter"]
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches()
+    for k in mg.launches:
+        mg.launches[k] = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["submit", "-c", str(ROOT / "examples" / "configs" /
+                                           name), "--json"])
+    seconds = time.perf_counter() - t0
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    losses = out["loss_per_round"]
+    want = dict.fromkeys(fm.MODES, 0)
+    want["double"] = iters * 2 * cfg["n_clients"]
+    if (rc != 0 or len(losses) != iters or not np.all(np.isfinite(losses))
+            or "encryption" not in out["phases"]):
+        raise AssertionError(f"submit {name}: rc {rc}, output {out}")
+    if dict(fm.mode_launches) != want or any(mg.launches.values()):
+        raise AssertionError(f"submit {name}: launches {fm.mode_launches} "
+                             f"and {mg.launches}, expected {want}")
+    return {**fm.mode_launches, **mg.launches}, seconds, out
+
+
+def run_single_client(dev, steps=TRAIN_STEPS):
+    """One client alone: FemnistCNN on its 128 synthetic FEMNIST samples,
+    `steps` full-batch Adam steps at lr 5e-4 through LocalTrainer.  Returns
+    the losses and the host seconds of steps 2 to `steps` (a synchronize
+    after each), the first holding cuDNN's set-up."""
+    x, y = federated_dataset("femnist", 1, 128, seed=0)[0]
+    model = FemnistCNN(device=dev)
+    init_params(model, x[:1], seed=0)
+    trainer = LocalTrainer(model, optimizer="adam", learning_rate=5e-4,
+                           device=dev)
+    losses, secs = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.train(x, y, batch_size=128))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"single client: losses {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first:
+        raise AssertionError(f"single client: the mean of the last 5 losses "
+                             f"{last} is not below that of the first 5 "
+                             f"{first}")
+    return losses, sum(secs[1:])
+
+
+def run_training_phase(dev, tf32):
+    """Phase 10 with torch's own TF32 settings, those `submit` runs with
+    (this script turns TF32 off for the other phases); restores them."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    try:
+        print(f"federated training: torch.backends.cudnn.allow_tf32="
+              f"{torch.backends.cudnn.allow_tf32} (convolutions in TF32), "
+              f"torch.backends.cuda.matmul.allow_tf32="
+              f"{torch.backends.cuda.matmul.allow_tf32}: torch's defaults, "
+              "as submit runs")
+        out = {}
+        for name, n_params in TRAIN_CONFIGS:
+            launches, mont, secs, r = run_training(dev, name)
+            check_training(name, launches, mont, r, n_params)
+            out[name] = {**launches, **mont}
+            iters, guest = r["param"].max_iter, r["recs"][0]
+            print(f"federated training {name} ({r['n']} clients x "
+                  f"{r['samples']} samples, {r['param'].model} "
+                  f"{n_params:,} parameters, {r['param'].optimizer} lr "
+                  f"{r['param'].learning_rate}, {iters} iterations): "
+                  f"{secs:.2f} s; "
+                  f"loss_per_round {[round(v, 6) for v in r['losses']]}, "
+                  f"every client's decrypt == the clients' summed q mod "
+                  f"2^{r['param'].secure_aggregate_args.quantize.int_bits} "
+                  f"in every iteration, "
+                  f"every client the same model after each aggregation, "
+                  f"launches {launches['double']} double (= {iters} x "
+                  f"({r['n']} encrypts + {r['n']} clients x 1 pair)), "
+                  f"parameters and Adam state on the card")
+            for it, ph in enumerate(guest["phases"]):
+                train_ms = ph.get("local train", float("nan"))
+                print(f"  guest iteration {it} "
+                      f"({'warm-up' if it == 0 else 'steady'}) by phase "
+                      f"(ms, host clock, a "
+                      f"synchronize at each phase's ends): " + ", ".join(
+                          f"{k} {ph.get(k, 0.0):.2f}" for k in TRAIN_PHASES)
+                      + f"; the guest's local training "
+                      f"{r['samples'] / train_ms * 1e3:,.0f} samples/s (its "
+                      f"phase shares the card and one GIL with "
+                      f"{r['n'] - 1} other clients)")
+        out["submit"], secs, result = run_submit(TRAIN_CONFIGS[0][0])
+        print(f"python -m flashe_tpu_torch submit -c examples/configs/"
+              f"{TRAIN_CONFIGS[0][0]} --json, in this process: {secs:.2f} s, "
+              f"loss_per_round {result['loss_per_round']}, launches "
+              f"{out['submit']['double']} double")
+        losses, secs = run_single_client(dev)
+        print(f"single client, FemnistCNN, {TRAIN_STEPS} full-batch Adam "
+              f"steps at lr 5e-4 on 128 samples: losses {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f} (mean of the first 5 "
+              f"{np.mean(losses[:5]):.4f}, of the last 5 "
+              f"{np.mean(losses[-5:]):.4f}); steps 2-{TRAIN_STEPS} "
+              f"{secs / (TRAIN_STEPS - 1) * 1e3:.2f} ms a step, "
+              f"{128 * (TRAIN_STEPS - 1) / secs:,.0f} samples/s")
+        return out
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
 def mask_bound(count, card, m=INT_BITS, streams=2, sectors=None):
     """The mask kernel's bound at `count` lanes of m bits and `streams`
     mask streams: that many T-table AES-256 blocks for every 128 // m
@@ -1798,6 +2085,10 @@ def main(argv=None) -> int:
         return 2
     if args.tcp_role:
         return tcp_child(args.tcp_role, args.broker, args.workdir)
+    # torch's TF32 settings, which phase 10 trains with as submit does;
+    # every other phase runs in full float32
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -2023,6 +2314,12 @@ def main(argv=None) -> int:
               for name, row in tcp[role]["stats"].items()
               if name != "__total__" and row["sent_bytes"] > 100_000))
 
+    # federated training: the HomoNN roles through run_roles, as submit
+    train_launches = run_training_phase(dev, tf32)
+
+    def trained(key):
+        return sum(launches[key] for launches in train_launches.values())
+
     paths = time_paths(dev, keypair, card)
     mont_times, rate = time_montgomery(dev, keypair)
     # the 2,048-row plain time stands in for mont_exp_rows', whose plain
@@ -2062,6 +2359,7 @@ def main(argv=None) -> int:
         "launches_per_round": main_launches,
         "launches_federated": fed_launches["double"],
         "launches_per_federated_round": fed_launches["double"] // FED_ROUNDS,
+        "launches_training": trained("double"),
         "max_abs_err": max_err,
         "ms": times[N_FEMNIST][0],
         "host_calls_ms": times[N_FEMNIST][2],
@@ -2080,6 +2378,7 @@ def main(argv=None) -> int:
         "launches": launched,
         "launches_per_round": launched,
         "launches_federated": sparse_fed_launches[err_key],
+        "launches_training": trained(err_key),
         "max_abs_err": mode_err[err_key],
         "ms": mode_times[name]["ms"],
         "host_calls_ms": mode_times[name]["host_calls_ms"],
@@ -2096,6 +2395,7 @@ def main(argv=None) -> int:
         "launches": path[name],
         "launches_per_round": per_round,
         "launches_federated": pl_fed_launches[name],
+        "launches_training": trained(name),
         "max_abs_err": mont_err[name],
         "ms": paths[name]["ms"],
         "plain_ms": paths[name]["plain_ms"],

@@ -2,15 +2,18 @@
 
 - It imports nothing of the JAX package and no jax, and neither does
   chip_smoke.py, which runs on a machine without them.
-- Its ACIQ is a copy of the JAX package's, value for value.
+- Its ACIQ and its job configuration are copies of the JAX package's,
+  value for value.
 - Its entry points run on the card unless the caller asks for the CPU: the
-  ciphers, the codec and model, the quantizer, the session blocks, the
-  federated round's roles (`with_role`, the role classes) and the roles
-  that run_roles runs.
+  ciphers, the codec and models, the quantizer, the session blocks, the
+  federated round's roles (`with_role`, the role classes), the roles that
+  run_roles runs, the trainer and the HomoNN roles.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import glob
 import json
 import os
 import subprocess
@@ -21,9 +24,13 @@ import pytest
 import torch
 
 from flashe_tpu.quant import aciq as jaciq
+from flashe_tpu.runtime import config as jconfig
 from flashe_tpu_torch.crypto.flashe import FlasheCipher
 from flashe_tpu_torch.crypto.paillier import PaillierCipher, PaillierKeypair
+from flashe_tpu_torch.nn import homo_nn
+from flashe_tpu_torch.nn import models as pmodels
 from flashe_tpu_torch.nn.models import FemnistCNN
+from flashe_tpu_torch.nn.trainer import LocalTrainer
 from flashe_tpu_torch.nn.weights import WeightsCodec
 from flashe_tpu_torch.ops.modmath import MontCtx, PairMontCtx
 from flashe_tpu_torch.protocol import aggregator
@@ -31,6 +38,8 @@ from flashe_tpu_torch.protocol.blocks import flashe as fblocks
 from flashe_tpu_torch.protocol.blocks import paillier as pblocks
 from flashe_tpu_torch.protocol.blocks import plain as plblocks
 from flashe_tpu_torch.protocol.blocks.flashe import choose_masking
+from flashe_tpu_torch.runtime import config as pconfig
+from flashe_tpu_torch.runtime.config import HomoNNParam
 from flashe_tpu_torch.runtime.simulate import run_roles
 from flashe_tpu_torch.quant import aciq as paciq
 from flashe_tpu_torch.quant import quantizer as pquant
@@ -64,7 +73,9 @@ def test_port_and_chip_smoke_import_no_jax_package():
     assert "flashe_tpu_torch.protocol.sparsify" in out["modules"]
     for name in ("fed.tcp", "fed.inmem", "fed.variables", "crypto.aes_host",
                  "crypto.dh", "protocol.payload", "protocol.dh_sync",
-                 "protocol.blocks.plain", "runtime.simulate"):
+                 "protocol.blocks.plain", "runtime.simulate",
+                 "runtime.config", "data", "nn.models", "nn.trainer",
+                 "nn.homo_nn", "runtime.checkpoint", "__main__"):
         assert f"flashe_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -78,6 +89,33 @@ def test_aciq_table_matches_jax_for_every_width():
     assert paciq._GAUSSIAN_CONST == jaciq._GAUSSIAN_CONST
     for bits in range(2, 41):
         assert paciq.ACIQ(bits)._alpha_opt() == jaciq.ACIQ(bits)._alpha_opt()
+
+
+@pytest.mark.parametrize("cls", ["QuantizeConfig", "SecureAggregateArgs",
+                                 "CVParam", "HomoNNParam"])
+def test_config_fields_match_jax(cls):
+    def default(f):
+        v = (f.default if f.default is not dataclasses.MISSING
+             else f.default_factory())
+        return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
+
+    def fields(mod):
+        return [(f.name, default(f))
+                for f in dataclasses.fields(getattr(mod, cls))]
+
+    assert fields(pconfig) == fields(jconfig)
+
+
+@pytest.mark.parametrize("path", sorted(glob.glob(
+    os.path.join(REPO, "examples", "configs", "*.json"))),
+    ids=os.path.basename)
+def test_config_dict_forms_match_jax(path):
+    with open(path) as f:
+        d = json.load(f)["param"]
+    port, ref = HomoNNParam.from_dict(d), jconfig.HomoNNParam.from_dict(d)
+    assert port.to_dict() == ref.to_dict()
+    assert (port.secure_aggregate_args.to_dict()
+            == ref.secure_aggregate_args.to_dict())
 
 
 @pytest.mark.parametrize("bits", [2, 8, 16, 31, 32])
@@ -103,6 +141,7 @@ def _constructors():
     keypair = PaillierKeypair.generate_keypair(128)
     n = keypair[0].n
     template = {"w": torch.zeros(3, 2)}
+    plain = HomoNNParam(secure_aggregate="plain")
     return {
         "FlasheCipher": lambda: FlasheCipher(20),
         "PaillierCipher": lambda: PaillierCipher(),
@@ -132,6 +171,14 @@ def _constructors():
             1, lambda trv: aggregator.with_role("guest", trv),
             lambda trv, h: aggregator.with_role("host", trv),
             lambda trv: aggregator.with_role("arbiter", trv), timeout=30),
+        "MLP": lambda: pmodels.MLP(),
+        "CifarResNet": lambda: pmodels.CifarResNet(),
+        "CharLSTM": lambda: pmodels.CharLSTM(),
+        "build_model": lambda: pmodels.build_model("cnn"),
+        "LocalTrainer": lambda: LocalTrainer(pmodels.MLP(device="cpu")),
+        "HomoNNGuest": lambda: homo_nn.HomoNNGuest(plain),
+        "HomoNNHost": lambda: homo_nn.HomoNNHost(plain),
+        "HomoNNArbiter": lambda: homo_nn.HomoNNArbiter(plain),
     }
 
 
@@ -141,7 +188,9 @@ def _constructors():
     "make_session", "choose_masking", "flashe.Arbiter", "flashe.Guest",
     "flashe.Host", "plain.Arbiter", "plain.Guest", "plain.Host",
     "aggregator.Arbiter", "aggregator.Guest", "aggregator.Host",
-    "with_role", "run_roles"])
+    "with_role", "run_roles", "MLP", "CifarResNet", "CharLSTM",
+    "build_model", "LocalTrainer", "HomoNNGuest", "HomoNNHost",
+    "HomoNNArbiter"])
 def test_entry_points_default_to_the_card(name):
     """Called with no device, each entry point asks for the card: on a host
     without one it raises and never carries on on the CPU."""
