@@ -114,7 +114,29 @@ Phases, each of which fails the run:
      that of its first 5.  It prints the guest's phases an iteration (the
      first a warm-up, holding each thread's first cuDNN and cuBLAS calls;
      the second steady) and the local training rate (host clock, a
-     synchronize at each phase's ends).
+     synchronize at each phase's ends);
+ 11. the general-HE baselines (run after phase 10), whose rounds launch
+     no kernel of csrc/: their ring is torch ops (ops/ntt.py).  ntt and
+     intt on the card equal the same functions on the CPU, bit for bit, at
+     N 64, 1,024 and 8,192 over k 1 (the slot prime t), 2 and 6 primes,
+     batches up to 295; intt(ntt(a) ntt(b)) equals a python-int negacyclic
+     convolution; CKKS's centred reconstruction equals python ints near
+     +-2^62.  At full width, 10 clients: BFV (t 1964769281, m 8192,
+     batching; 148 ciphertexts of q16 lanes a client), whose decrypted sum
+     must equal the clients' summed q exactly, one upload decrypting to
+     the same lanes on the card and on the CPU; CKKS (N 8192, scale 2^40;
+     295 ciphertexts of floats a client), its decrypted sum within 1e-7 of
+     the float64 sum; the additive pads, the arbiter's float32 sum within
+     1e-3 of the plain sum.  Then federated training as in phase 10:
+     cnn_bfv_q16_binf_pad.json and cnn_ckks.json as they stand but for
+     max_iter 2, and cnn_flashe_q16_b1_pad.json with secure_aggregate
+     "additive"; finite losses, every client the same model after each
+     aggregation, BFV's decrypt equal to the summed q in every iteration
+     (CKKS's and the additive sum within their tolerances of the sum of
+     the uploads), and no mask or Montgomery launch.  It prints the
+     guest's phases, the calls of the ring's device code an iteration,
+     and their times at the round's shapes (CUDA events) beside their
+     bounds, one JSON line of them, and the phase's peak device memory.
 It prints ptxas's registers and spills of every kernel instance after the
 build and, where the toolkit has cuobjdump, the mask kernel's instruction
 counts; the kernels' JSON line and the card's name and power limit, then as
@@ -135,10 +157,12 @@ point, flashe_mask_apply_modes.
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import contextlib
 import io
 import json
+import math
 import random
 import shutil
 import statistics
@@ -152,7 +176,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from flashe_tpu_torch.crypto.bfv import BFVCipher
+from flashe_tpu_torch.crypto.ckks import CKKSCipher
 from flashe_tpu_torch.crypto.flashe import FlasheCipher, merge_idx_runs
+from flashe_tpu_torch.crypto.random_pads import PadsCipher
 from flashe_tpu_torch.fed.tcp import FedBroker, TcpFederation
 from flashe_tpu_torch.fed.transport import default_parties
 from flashe_tpu_torch.fed.variables import HomoTransferVariables
@@ -163,7 +190,7 @@ from flashe_tpu_torch.nn.homo_nn import HomoNNArbiter, HomoNNGuest, HomoNNHost
 from flashe_tpu_torch.nn.models import FemnistCNN, init_params
 from flashe_tpu_torch.nn.trainer import LocalTrainer
 from flashe_tpu_torch.nn.weights import WeightsCodec
-from flashe_tpu_torch.ops import _build, aes, lanes, masks, modmath
+from flashe_tpu_torch.ops import _build, aes, lanes, masks, modmath, ntt
 from flashe_tpu_torch.ops import flashe_mask as fm
 from flashe_tpu_torch.ops import montgomery as mg
 from flashe_tpu_torch.ops import quantize as qops
@@ -226,6 +253,27 @@ TRAIN_CONFIGS = (("cnn_flashe_q16_b1_pad.json", 1_206_590),
 TRAIN_STEPS = 20
 TRAIN_PHASES = ("local train", "encoding", "encryption", "upload",
                 "download", "decryption", "decoding")
+
+# phase 11, the general-HE baselines: BFV at t and m of
+# cnn_bfv_q16_binf_pad.json (protocol/blocks/bfv.py's defaults), CKKS at N
+# 8192 and scale 2^40 (cnn_ckks.json); FemnistCNN's 1,206,590 values fill
+# 148 BFV ciphertexts of 8,192 slots and 295 CKKS ones of 4,096
+HE_T, HE_M = 1964769281, 8192
+BFV_CTS, CKKS_CTS = 148, 295
+# (N, k, batch) of the NTT's card-against-CPU check; k = 1 is the slot
+# prime t, (8192, 6, 295) the CKKS round's shape
+NTT_GRID = ((64, 1, 5), (64, 2, 5), (64, 6, 5), (1024, 1, 7), (1024, 2, 7),
+            (1024, 6, 7), (8192, 1, BFV_CTS), (8192, 2, 16),
+            (8192, 6, CKKS_CTS))
+# a CKKS slot decrypts to noise / scale ~1e-9 of its value
+CKKS_ATOL = 1e-7
+# float32 rounding of 10 padded uploads: about 100 roundings of values up
+# to ~2^5 (full width, the model plus 9 pads of N(0, 1)) or ~2^10 (in
+# training, the model times its 128 samples' degree, and their sums)
+ADDITIVE_ATOL, ADDITIVE_ATOL_TRAIN = 1e-3, 1e-2
+HE_TRAIN = (("cnn_bfv_q16_binf_pad.json", None), ("cnn_ckks.json", None),
+            ("cnn_flashe_q16_b1_pad.json", "additive"))
+HE_TRAIN_ITERS = 2
 
 # the Paillier configuration, examples/configs/cnn_paillier_q16_b100_pad.json
 PAILLIER_ARGS = {"key_length": 2048, "quantize": {
@@ -1760,19 +1808,21 @@ def run_tcp_round(dev, model):
     return seconds, worst, res, packed
 
 
-def run_training(dev, name):
+def run_training(dev, name, cfg=None, record=record_client):
     """Phase 10: examples/configs/<name> as `python -m flashe_tpu_torch
     submit` runs it (HomoNNGuest, HomoNNHost x (n - 1) and HomoNNArbiter,
     one thread each over run_roles, data from the port's
-    federated_dataset), on `dev`.  Each client records its quantized
-    upload and its decrypted lanes every iteration (record_client, on the
+    federated_dataset), on `dev`; `cfg`, where given, is that
+    configuration's dict as phase 11 varies it.  Each client records its
+    upload and its decrypted lanes every iteration (`record`, on the
     aggregator its fit makes) and its model after every aggregation, the
     guest its phases an iteration (a synchronize at each phase's ends,
     local training timed as a phase of its own).  Returns the mask
     kernel's launches by mode and the Montgomery kernels', and what the
     checks need."""
-    with open(ROOT / "examples" / "configs" / name) as f:
-        cfg = json.load(f)
+    if cfg is None:
+        with open(ROOT / "examples" / "configs" / name) as f:
+            cfg = json.load(f)
     param = HomoNNParam.from_dict(cfg["param"])
     n = cfg["n_clients"]
     shards = federated_dataset(cfg["dataset"], n, cfg["samples_per_client"],
@@ -1784,7 +1834,7 @@ def run_training(dev, name):
     def recorded_with_role(role, *args, **kw):
         agg = with_role(role, *args, **kw)
         if role != "arbiter":
-            record_client(agg, local.rec)
+            record(agg, local.rec)
         return agg
 
     def client(cls, trv, i):
@@ -1832,7 +1882,8 @@ def run_training(dev, name):
         t0 = time.perf_counter()
         res = run_roles(n - 1, lambda trv: client(HomoNNGuest, trv, 0),
                         lambda trv, h: client(HomoNNHost, trv, 1 + h),
-                        arbiter, job_id=f"chip-smoke-train-{name}",
+                        arbiter, job_id=f"chip-smoke-train-{name}-"
+                        f"{param.secure_aggregate}",
                         timeout=600)
         seconds = time.perf_counter() - t0
     finally:
@@ -1943,14 +1994,39 @@ def run_single_client(dev, steps=TRAIN_STEPS):
     return losses, sum(secs[1:])
 
 
-def run_training_phase(dev, tf32):
-    """Phase 10 with torch's own TF32 settings, those `submit` runs with
-    (this script turns TF32 off for the other phases); restores them."""
+@contextlib.contextmanager
+def submit_tf32(tf32):
+    """torch's own TF32 settings `tf32`, those `submit` runs with (this
+    script turns TF32 off for the other phases); restores them."""
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32
     try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def print_guest_phases(r):
+    """The guest's phases of each iteration of a run_training result."""
+    for it, ph in enumerate(r["recs"][0]["phases"]):
+        train_ms = ph.get("local train", float("nan"))
+        print(f"  guest iteration {it} "
+              f"({'warm-up' if it == 0 else 'steady'}) by phase "
+              f"(ms, host clock, a "
+              f"synchronize at each phase's ends): " + ", ".join(
+                  f"{k} {ph.get(k, 0.0):.2f}" for k in TRAIN_PHASES)
+              + f"; the guest's local training "
+              f"{r['samples'] / train_ms * 1e3:,.0f} samples/s (its "
+              f"phase shares the card and one GIL with "
+              f"{r['n'] - 1} other clients)")
+
+
+def run_training_phase(dev, tf32):
+    """Phase 10 with torch's own TF32 settings, as `submit` runs."""
+    with submit_tf32(tf32):
         print(f"federated training: torch.backends.cudnn.allow_tf32="
               f"{torch.backends.cudnn.allow_tf32} (convolutions in TF32), "
               f"torch.backends.cuda.matmul.allow_tf32="
@@ -1961,7 +2037,7 @@ def run_training_phase(dev, tf32):
             launches, mont, secs, r = run_training(dev, name)
             check_training(name, launches, mont, r, n_params)
             out[name] = {**launches, **mont}
-            iters, guest = r["param"].max_iter, r["recs"][0]
+            iters = r["param"].max_iter
             print(f"federated training {name} ({r['n']} clients x "
                   f"{r['samples']} samples, {r['param'].model} "
                   f"{n_params:,} parameters, {r['param'].optimizer} lr "
@@ -1975,17 +2051,7 @@ def run_training_phase(dev, tf32):
                   f"launches {launches['double']} double (= {iters} x "
                   f"({r['n']} encrypts + {r['n']} clients x 1 pair)), "
                   f"parameters and Adam state on the card")
-            for it, ph in enumerate(guest["phases"]):
-                train_ms = ph.get("local train", float("nan"))
-                print(f"  guest iteration {it} "
-                      f"({'warm-up' if it == 0 else 'steady'}) by phase "
-                      f"(ms, host clock, a "
-                      f"synchronize at each phase's ends): " + ", ".join(
-                          f"{k} {ph.get(k, 0.0):.2f}" for k in TRAIN_PHASES)
-                      + f"; the guest's local training "
-                      f"{r['samples'] / train_ms * 1e3:,.0f} samples/s (its "
-                      f"phase shares the card and one GIL with "
-                      f"{r['n'] - 1} other clients)")
+            print_guest_phases(r)
         out["submit"], secs, result = run_submit(TRAIN_CONFIGS[0][0])
         print(f"python -m flashe_tpu_torch submit -c examples/configs/"
               f"{TRAIN_CONFIGS[0][0]} --json, in this process: {secs:.2f} s, "
@@ -2000,9 +2066,428 @@ def run_training_phase(dev, tf32):
               f"{secs / (TRAIN_STEPS - 1) * 1e3:.2f} ms a step, "
               f"{128 * (TRAIN_STEPS - 1) / secs:,.0f} samples/s")
         return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the general-HE baselines (BFV, CKKS, the additive random pads)
+# ---------------------------------------------------------------------------
+
+def check_ntt_on_card(dev):
+    """ntt and intt on the card against the same functions on the CPU, bit
+    for bit, on NTT_GRID; intt(ntt(a) ntt(b)) against a python-int
+    negacyclic convolution; CKKS's centred reconstruction (int64 products
+    that wrap) against python ints near +-2^62.  Returns the cases run."""
+    for N, k, B in NTT_GRID:
+        primes = [HE_T] if k == 1 else ntt.find_ntt_primes(k, 30, 2 * N)
+        card_ctx = ntt.RnsContext(N, primes, dev)
+        cpu_ctx = ntt.RnsContext(N, primes, "cpu")
+        gen = torch.Generator().manual_seed(N + k)
+        x = torch.stack([torch.randint(0, p, (B, N), generator=gen)
+                         for p in primes], dim=1).int()
+        want = ntt.ntt(cpu_ctx, x)
+        got = ntt.ntt(card_ctx, x.to(dev))
+        back = ntt.intt(card_ctx, got)
+        if not (torch.equal(got.cpu(), want) and torch.equal(
+                back.cpu(), ntt.intt(cpu_ctx, want))
+                and torch.equal(back.cpu(), x)):
+            raise AssertionError(f"ntt / intt at N {N}, k {k}, batch {B}: "
+                                 "the card differs from the CPU")
+    N, rng = 64, random.Random(SEED)
+    ctx = ntt.RnsContext(N, ntt.find_ntt_primes(2, 30, 2 * N), dev)
+    a = [rng.randrange(-1000, 1000) for _ in range(N)]
+    b = [rng.randrange(-1000, 1000) for _ in range(N)]
+    conv = [0] * N
+    for i in range(N):
+        for j in range(N):
+            conv[(i + j) % N] += (1 if i + j < N else -1) * a[i] * b[j]
+    fa, fb = (ntt.ntt(ctx, ctx.from_signed(torch.tensor(v)))
+              for v in (a, b))
+    got = ntt.intt(ctx, ctx.mul(fa, fb)).cpu()
+    if got.tolist() != [[c % p for c in conv] for p in ctx.primes]:
+        raise AssertionError("intt(ntt(a) ntt(b)) on the card is not the "
+                             "negacyclic convolution")
+    c = CKKSCipher(N, device=dev)
+    xs = [0, 1, -1, 2**62, -(2**62), 2**62 + 12345, -(2**62) - 6789,
+          2**63 - 1, -(2**63) + 1]
+    xs += [rng.randrange(-(2**62), 2**62) for _ in range(N - len(xs))]
+    v = torch.tensor([[x % p for x in xs] for p in c.ctx.primes],
+                     dtype=torch.int64).int()[None]
+    if c._centred(v.to(dev))[0].tolist() != xs:
+        raise AssertionError("CKKS's centred reconstruction on the card is "
+                             "off the python ints")
+    return len(NTT_GRID)
+
+
+def _he_ciphers(make, guest, n):
+    """The guest's cipher and n - 1 hosts' with its secret (and, for BFV,
+    its public key), as the session setup leaves them."""
+    hosts = [make().load_secret(guest.serialize_secret())
+             for _ in range(n - 1)]
+    if hasattr(guest, "public_parts"):
+        for h in hosts:
+            h.set_public_parts(guest.public_parts())
+    return [guest] + hosts
+
+
+def _median_ms(fn, reps=3):
+    fn()
+    return statistics.median(event_ms(fn, reps))
+
+
+def run_bfv_full(dev, model):
+    """cnn_bfv_q16_binf_pad.json's cipher at full width: 10 clients'
+    quantized FemnistCNN lanes (q16 at int_bits 20, the secure ACIQ
+    quantizer, seeds 0-9), BFV_CTS ciphertexts each; the arbiter's sum;
+    a decrypt that must equal the clients' summed q mod t exactly; one
+    upload decrypted on the card and on the CPU."""
+    codec = WeightsCodec(model.params_to_flax(), device=dev)
+    flats = client_flats(dev, codec, model, N_CLIENTS)
+    qs = []
+    for i, f in enumerate(flats):
+        quant = QuantizingClient(INT_BITS, False, ELEMENT_BITS, True, True,
+                                 seed=i, device=dev)
+        quant.set_num_clients(N_CLIENTS)
+        quant.set_codec(codec)
+        qs.append(quant.quantize(quant.normalize(f)))
+
+    def make(seed=None, device=dev):
+        return BFVCipher(HE_T, HE_M, flagBatching=True, seed=seed,
+                         device=device)
+
+    clients = _he_ciphers(make, make(SEED).generate_keys(), N_CLIENTS)
+    arbiter = make()
+    ups = [c.encrypt(q) for c, q in zip(clients, qs)]
+    for u in ups:
+        if (u.shape != (BFV_CTS, 2, clients[0].k, HE_M)
+                or u.dtype != torch.int32):
+            raise AssertionError(f"BFV upload {tuple(u.shape)} {u.dtype}")
+    agg = arbiter.add_ciphertexts(ups)
+    dec = clients[0].decrypt(agg, N_FEMNIST)
+    want = sum(q.long() for q in qs) % HE_T
+    if not torch.equal(dec.long(), want):
+        raise AssertionError("BFV: the decrypted aggregate != the clients' "
+                             "summed q mod t")
+    cpu = make(device="cpu").load_secret(clients[0].serialize_secret())
+    on_cpu = cpu.decrypt(ups[3].cpu(), N_FEMNIST)
+    if not (torch.equal(on_cpu, clients[5].decrypt(ups[3], N_FEMNIST).cpu())
+            and torch.equal(on_cpu, qs[3].cpu())):
+        raise AssertionError("BFV: one upload decrypts differently on the "
+                             "card and on the CPU, or not to its q")
+    return dict(
+        encrypt=_median_ms(lambda: clients[1].encrypt(qs[1])),
+        sum=_median_ms(lambda: arbiter.add_ciphertexts(ups), 5),
+        decrypt=_median_ms(lambda: clients[2].decrypt(agg, N_FEMNIST)),
+        phase=clients[0]._phase(agg), cipher=clients[0], ups=ups)
+
+
+def run_ckks_full(dev, model):
+    """cnn_ckks.json's cipher at full width: 10 float vectors (the global
+    model plus 0.01 N(0, 1), as the rounds make them), CKKS_CTS
+    ciphertexts each; the arbiter's sum, decrypted within CKKS_ATOL of the
+    float64 sum."""
+    codec = WeightsCodec(model.params_to_flax(), device=dev)
+    flats = client_flats(dev, codec, model, N_CLIENTS)
+
+    def make(seed=None):
+        return CKKSCipher(HE_M, seed=seed, device=dev)
+
+    clients = _he_ciphers(make, make(SEED).generate_keys(), N_CLIENTS)
+    arbiter = make()
+    ups = [c.encrypt(f) for c, f in zip(clients, flats)]
+    if any(u.shape != (CKKS_CTS, 2, clients[0].k, HE_M) for u in ups):
+        raise AssertionError(f"CKKS upload {tuple(ups[0].shape)}")
+    agg = arbiter.add_ciphertexts(ups)
+    dec = clients[0].decrypt(agg, N_FEMNIST)
+    err = float((dec - sum(f.double() for f in flats)).abs().max())
+    if not err <= CKKS_ATOL:
+        raise AssertionError(f"CKKS: the decrypted sum is off the float64 "
+                             f"sum by {err}")
+    return dict(
+        err=err,
+        encrypt=_median_ms(lambda: clients[1].encrypt(flats[1])),
+        sum=_median_ms(lambda: arbiter.add_ciphertexts(ups), 5),
+        decrypt=_median_ms(lambda: clients[2].decrypt(agg, N_FEMNIST)),
+        cipher=clients[0], agg=agg, ups=ups)
+
+
+def run_additive_full(dev, model):
+    """The additive random pads at full width: 10 clients with pairwise
+    secrets, each float vector padded; the arbiter's float sum within
+    ADDITIVE_ATOL of the float64 plain sum."""
+    codec = WeightsCodec(model.params_to_flax(), device=dev)
+    flats = client_flats(dev, codec, model, N_CLIENTS)
+    uuids = [f"client-{i}" for i in range(N_CLIENTS)]
+    rng = random.Random(SEED)
+    secret = {(a, b): rng.getrandbits(256)
+              for i, a in enumerate(uuids) for b in uuids[i + 1:]}
+    ciphers = []
+    for me in uuids:
+        c = PadsCipher(dev)
+        c.set_self_uuid(me)
+        c.set_exchanged_keys({
+            other: (j, secret[tuple(sorted((me, other)))], "host", j)
+            for j, other in enumerate(uuids) if other != me})
+        ciphers.append(c)
+    ups = [c.encrypt(f) for c, f in zip(ciphers, flats)]
+    agg = arbiter_reduce(ups)
+    err = float((agg.double() - sum(f.double() for f in flats)).abs().max())
+    if not err <= ADDITIVE_ATOL:
+        raise AssertionError(f"additive: the arbiter's sum is off the plain "
+                             f"sum by {err}")
+    return dict(err=err,
+                encrypt=_median_ms(lambda: ciphers[1].encrypt(flats[1])),
+                sum=_median_ms(lambda: arbiter_reduce(ups), 5))
+
+
+def record_he_client(agg, rec):
+    """Record, iteration by iteration, what a client's block quantizes
+    (BFV's quantized lanes; the floats of CKKS and the additive pads) and
+    what it decrypts."""
+    block = agg._block
+    quantize, decrypt = block.quantize, block.decrypt
+
+    def recorded_quantize(flat, uniforms=None):
+        q = quantize(flat, uniforms=uniforms)
+        rec.setdefault("q", []).append(q)
+        return q
+
+    def recorded_decrypt(lanes, *args):
+        out = decrypt(lanes, *args)
+        rec.setdefault("dec", []).append(out)
+        return out
+
+    block.quantize, block.decrypt = recorded_quantize, recorded_decrypt
+
+
+@contextlib.contextmanager
+def count_ring_calls():
+    """Count the calls of the ring's device code (the NTT, the ring
+    product and sum, BFV's CRT rounding and CKKS's reconstruction) by name
+    and shape: the shape of the residues each call works on."""
+    counts, lock = collections.Counter(), threading.Lock()
+    shapes = {
+        "ntt": lambda ctx, x: x.shape,
+        "intt": lambda ctx, x: x.shape,
+        "mul": lambda ctx, a, b: torch.broadcast_shapes(a.shape, b.shape),
+        "sum": lambda ctx, xs: (len(xs),) + tuple(xs[0].shape),
+        "_round_crt": lambda cipher, v: v.shape,
+        "_centred": lambda cipher, v: v.shape,
+    }
+    saved = [(obj, name, getattr(obj, name)) for obj, name in (
+        (ntt, "ntt"), (ntt, "intt"), (ntt.RnsContext, "mul"),
+        (ntt.RnsContext, "sum"), (BFVCipher, "_round_crt"),
+        (CKKSCipher, "_centred"))]
+
+    def counted(name, fn):
+        def call(*args):
+            with lock:
+                counts[(name, tuple(shapes[name](*args)))] += 1
+            return fn(*args)
+        return call
+
+    for obj, name, fn in saved:
+        setattr(obj, name, counted(name, fn))
+    try:
+        yield counts
     finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def he_training_configs():
+    """(label, configuration dict): cnn_bfv_q16_binf_pad.json and
+    cnn_ckks.json as they stand but for max_iter 2, and the additive
+    variant of cnn_flashe_q16_b1_pad.json."""
+    out = []
+    for name, scheme in HE_TRAIN:
+        with open(ROOT / "examples" / "configs" / name) as f:
+            cfg = json.load(f)
+        cfg["param"]["max_iter"] = HE_TRAIN_ITERS
+        if scheme:
+            cfg["param"]["secure_aggregate"] = scheme
+            name = f"{name} with secure_aggregate {scheme!r}"
+        out.append((name, cfg))
+    return out
+
+
+def check_he_training(name, launches, mont, r):
+    """Finite losses; every client the same model bit for bit after each
+    aggregation, of N_FEMNIST parameters on the card; BFV's decrypt equal
+    to the clients' summed q (mod t, which the sums of 10 16-bit values
+    never reach); CKKS's within CKKS_ATOL (and float32's rounding) and the
+    additive sum within ADDITIVE_ATOL_TRAIN of the sum of the uploads; no
+    mask and no Montgomery launch."""
+    iters, recs, scheme = (r["param"].max_iter, r["recs"],
+                           r["param"].secure_aggregate)
+    losses = r["losses"]
+    if len(losses) != iters or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: loss_per_round {losses}")
+    worst = 0.0
+    for it in range(iters):
+        sent = [rec["q"][it] for rec in recs]
+        for i, rec in enumerate(recs):
+            if (len(rec["models"]) != iters or rec["n_params"] != N_FEMNIST
+                    or not rec["on_card"]):
+                raise AssertionError(f"{name}: client {i} installed "
+                                     f"{len(rec['models'])} models of "
+                                     f"{rec['n_params']} parameters, on the "
+                                     f"card: {rec['on_card']}")
+            if not torch.equal(rec["models"][it], recs[0]["models"][it]):
+                raise AssertionError(f"{name}: after aggregation {it}, "
+                                     f"client {i}'s model differs from the "
+                                     "guest's")
+            dec = rec["dec"][it]
+            if scheme == "bfv":
+                if not torch.equal(dec.long(), sum(q.long() for q in sent)):
+                    raise AssertionError(f"{name}: iteration {it}: client "
+                                         f"{i}'s decrypt != the summed q")
+                continue
+            want = sum(q.double() for q in sent)
+            err = (dec.double() - want).abs()
+            tol = (CKKS_ATOL + want.abs() * 2.0**-23 if scheme == "ckks"
+                   else ADDITIVE_ATOL_TRAIN)
+            if bool((err > tol).any()):
+                raise AssertionError(f"{name}: iteration {it}: client {i}'s "
+                                     f"decrypt is off the sum of the "
+                                     f"uploads by {float(err.max())}")
+            worst = max(worst, float(err.max()))
+    if any(launches.values()) or any(mont.values()):
+        raise AssertionError(f"{name}: launches {launches} and {mont}, "
+                             "expected no mask and no Montgomery kernel")
+    return worst
+
+
+def ring_bound(name, shape, card):
+    """The bound of one call of the ring's device code at `shape`: its
+    int32 residues read and its outputs written once (int32 residues, or
+    the (B, N) int64 values of the CRT rounding and the reconstruction);
+    MODMUL_INT_OPS integer operations a modular product: the NTT's
+    butterflies and twist, one a product's element, three an element of
+    the CRT rounding and the reconstruction (c_i, then the quotients or
+    the products by q / p_i), one add an element of a sum."""
+    n = math.prod(shape)
+    mm = roofline.MODMUL_INT_OPS
+    if name in ("ntt", "intt"):
+        B, k, N = shape
+        return roofline.bound_ms(mm * roofline.ntt_modmuls(B, k, N), 8 * n,
+                                 card)
+    if name == "mul":
+        return roofline.bound_ms(mm * n, 12 * n, card)
+    if name == "sum":  # shape: (uploads, *one upload)
+        return roofline.bound_ms(n, 4 * (n + n // shape[0]), card)
+    B, k, N = shape  # _round_crt and _centred: (B, k, N) in, (B, N) int64
+    return roofline.bound_ms(3 * mm * n, 4 * n + 8 * B * N, card)
+
+
+def time_ring(dev, card, bfv, ckks):
+    """CUDA-event times of the ring's device code at the round's shapes,
+    each beside its bound: ntt, intt and the ring product at BFV's and at
+    CKKS's (ciphertexts, 6, HE_M), the 10-upload sum of each, BFV's CRT
+    rounding and CKKS's reconstruction."""
+    gen = torch.Generator(dev).manual_seed(SEED)
+    rows = []
+    for r, B in ((bfv, BFV_CTS), (ckks, CKKS_CTS)):
+        ctx = r["cipher"].ctx
+        x, y = (torch.stack([torch.randint(0, p, (B, HE_M), generator=gen,
+                                           device=dev) for p in ctx.primes],
+                            dim=1).int() for _ in range(2))
+        shape = tuple(x.shape)
+        rows += [("ntt", shape, _median_ms(lambda: ntt.ntt(ctx, x), 5)),
+                 ("intt", shape, _median_ms(lambda: ntt.intt(ctx, x), 5)),
+                 ("mul", shape, _median_ms(lambda: ctx.mul(x, y), 5)),
+                 ("sum", (len(r["ups"]),) + tuple(r["ups"][0].shape),
+                  _median_ms(lambda: ctx.sum(r["ups"]), 5))]
+    v = bfv["phase"]
+    rows.append(("_round_crt", tuple(v.shape),
+                 _median_ms(lambda: bfv["cipher"]._round_crt(v), 5)))
+    c = ckks["cipher"]
+    w = ntt.intt(c.ctx, c.ctx.add(ckks["agg"][:, 0],
+                                  c.ctx.mul(ckks["agg"][:, 1], c.sk_ntt)))
+    rows.append(("_centred", tuple(w.shape),
+                 _median_ms(lambda: c._centred(w), 5)))
+    return [dict(name=name, shape=shape, ms=ms,
+                 **dict(zip(("bound_ms", "bound_by"),
+                            ring_bound(name, shape, card))))
+            for name, shape, ms in rows]
+
+
+def run_he_phase(dev, model, card, tf32):
+    """Phase 11: the NTT on the card against the CPU, BFV, CKKS and the
+    additive pads at full width, then federated training under each, as
+    `submit` runs it; the ring's device code timed.  Returns the rows of
+    the printed device-code JSON."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cases = check_ntt_on_card(dev)
+    print(f"NTT on the card: ntt and intt bit-exact with the CPU on "
+          f"{cases} cases (N 64-8192, k 1 (t = {HE_T}), 2 and 6, batches "
+          f"up to {CKKS_CTS}); intt(ntt(a) ntt(b)) == the python-int "
+          f"negacyclic convolution at N 64; CKKS's reconstruction == python "
+          f"ints near +-2^62")
+    bfv = run_bfv_full(dev, model)
+    print(f"BFV at full width (t {HE_T}, m {HE_M}, batching, q = "
+          f"{bfv['cipher'].k} x 30-bit primes): {N_CLIENTS} clients x "
+          f"{N_FEMNIST:,} q16 lanes, {BFV_CTS} ciphertexts, "
+          f"{bfv['ups'][0].nbytes:,} B, each; "
+          f"the decrypted sum == the clients' summed q mod t exactly; one "
+          f"upload decrypts to its q on the card and on the CPU; one "
+          f"client's encrypt {bfv['encrypt']:.2f} ms, the {N_CLIENTS}-upload "
+          f"sum {bfv['sum']:.3f} ms, the decrypt {bfv['decrypt']:.2f} ms "
+          f"(medians, CUDA events)")
+    ckks = run_ckks_full(dev, model)
+    print(f"CKKS at full width (N {HE_M}, scale 2^40): {N_CLIENTS} clients "
+          f"x {N_FEMNIST:,} floats, {CKKS_CTS} ciphertexts each; the "
+          f"decrypted sum within {ckks['err']:.3e} of the float64 sum "
+          f"(limit {CKKS_ATOL}); one client's encrypt {ckks['encrypt']:.2f} "
+          f"ms, the sum {ckks['sum']:.3f} ms, the decrypt "
+          f"{ckks['decrypt']:.2f} ms")
+    add = run_additive_full(dev, model)
+    print(f"additive pads at full width: {N_CLIENTS} clients x "
+          f"{N_FEMNIST:,} floats, 9 pads each; the arbiter's float32 sum "
+          f"within {add['err']:.3e} of the plain float64 sum (limit "
+          f"{ADDITIVE_ATOL}); one client's encrypt {add['encrypt']:.3f} ms, "
+          f"the sum {add['sum']:.3f} ms")
+    ring = time_ring(dev, card, bfv, ckks)
+    del bfv, ckks, add
+    with submit_tf32(tf32):
+        for name, cfg in he_training_configs():
+            with count_ring_calls() as calls:
+                launches, mont, secs, r = run_training(
+                    dev, name, cfg, record_he_client)
+            worst = check_he_training(name, launches, mont, r)
+            scheme = r["param"].secure_aggregate
+            print(f"federated training {name} ({r['n']} clients x "
+                  f"{r['samples']} samples, FemnistCNN {N_FEMNIST:,} "
+                  f"parameters, {r['param'].max_iter} iterations): "
+                  f"{secs:.2f} s; loss_per_round "
+                  f"{[round(v, 6) for v in r['losses']]}; every client the "
+                  f"same model after each aggregation; "
+                  + ("every client's decrypt == the clients' summed q"
+                     if scheme == "bfv" else
+                     f"every client's decrypt within {worst:.3e} of the sum "
+                     "of the uploads")
+                  + "; no mask or Montgomery launch; ring calls an "
+                  "iteration (all parties): " + ", ".join(
+                      f"{n} {list(s)} x {c / r['param'].max_iter:g}"
+                      for (n, s), c in sorted(calls.items())))
+            print_guest_phases(r)
+            for row in ring:
+                key = (row["name"], tuple(row["shape"]))
+                row.setdefault("calls_per_iteration", {})[scheme] = \
+                    calls.get(key, 0) / r["param"].max_iter
+    for row in ring:
+        print(f"ring device code {row['name']} at {list(row['shape'])}: "
+              f"{row['ms']:.4f} ms (median, CUDA events), bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+              f"({row['bound_ms'] / row['ms']:.2%}), calls an iteration "
+              f"{row['calls_per_iteration']}; {card.name}, "
+              f"{card.power_limit}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"phase 11: {time.perf_counter() - t0:.2f} s (host clock); peak "
+          f"device memory {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+    return ring
 
 
 def mask_bound(count, card, m=INT_BITS, streams=2, sectors=None):
@@ -2316,6 +2801,8 @@ def main(argv=None) -> int:
 
     # federated training: the HomoNN roles through run_roles, as submit
     train_launches = run_training_phase(dev, tf32)
+    # the general-HE baselines, at full width and in training
+    he_rows = run_he_phase(dev, model, card, tf32)
 
     def trained(key):
         return sum(launches[key] for launches in train_launches.values())
@@ -2350,6 +2837,8 @@ def main(argv=None) -> int:
         ("limbs", "limbs", path_b[0], "B",
          "flashe_tpu/crypto/flashe.py:247-250, 316-324 (XLA streams at "
          "int_bits > 32)")]
+    print(json.dumps({"he_device_code": [
+        dict(row, shape=list(row["shape"])) for row in he_rows]}))
     print(json.dumps({"kernels": [{
         "name": "flashe_mask_apply",
         "route": "cuda",

@@ -1,7 +1,7 @@
 """The secure-aggregation engine (port of flashe_tpu/protocol/aggregator.py).
 
-Transport-free cores of the round, for every scheme the port runs (FLASHE,
-Paillier, plain):
+Transport-free cores of the round, for every scheme of the JAX package
+(FLASHE, Paillier, BFV, CKKS, the additive random pads, plain):
 
     client_upload   -- Client.secure_aggregate, dense branch: scale by the
                        degree, normalize, quantize, encrypt;
@@ -14,24 +14,29 @@ Paillier, plain):
                        the quantized zero that fills the unselected
                        positions (in plaintext; a ciphertext for Paillier);
     arbiter_reduce  -- Arbiter._reduce: the mod-2^m sum of FLASHE or
-                       quantized plain lanes, the float sum of plain ones,
-                       or a Paillier arbiter block's add_ciphertexts (the
-                       product mod n^2); sparse uploads are first densified
-                       with each client's filler;
+                       quantized plain lanes, the float sum of plain ones
+                       and of the additive scheme's padded ones, or an
+                       arbiter block's add_ciphertexts (Paillier's product
+                       mod n^2, the residue sums of BFV and CKKS); sparse
+                       uploads are first densified with each client's
+                       filler;
     client_download -- Client.get_aggregated_model: decrypt (FLASHE over the
-                       survivors' idx list), unquantize with the number of
-                       summands, divide by the degree, unnormalize, and
-                       after a sparse round add the last global model back.
+                       survivors' idx list; Paillier, BFV and CKKS the
+                       aggregate's n_elements values), unquantize with the
+                       number of summands, divide by the degree,
+                       unnormalize, and after a sparse round add the last
+                       global model back.
 
 The sparse upload is two calls because the dynamic masking choice needs
 every client's locations before any client encrypts: between them the
-arbiter decides (protocol/blocks/flashe.py::arbiter_masking).
+arbiter decides (protocol/blocks/flashe.py::arbiter_masking).  Sparse
+rounds run under FLASHE, Paillier and plain only (runtime/config.py).
 
 A client `block` has a `scheme`, a `.quantizer`, and set_iter_index /
 normalize / quantize / encrypt / decrypt / unquantize / unnormalize /
 get_idx_list: ClientBlock wraps a FlasheCipher and a QuantizingClient for
-the cores alone, and protocol/blocks/{flashe,paillier,plain}.py hold the
-session blocks.
+the cores alone, and protocol/blocks/{flashe,paillier,bfv,ckks,additive,
+plain}.py hold the session blocks.
 
 Around the cores, the roles over a federation (reference
 jzf_aggregator.py): `with_role` builds a Guest, Host or Arbiter, whose
@@ -73,6 +78,9 @@ from flashe_tpu_torch.fed import consts
 from flashe_tpu_torch.nn.weights import WeightsCodec
 from flashe_tpu_torch.ops.lanes import as_u32, lane_add, nlimbs_for, to_i32
 from flashe_tpu_torch.protocol import loss_sync
+from flashe_tpu_torch.protocol.blocks import additive as additive_block
+from flashe_tpu_torch.protocol.blocks import bfv as bfv_block
+from flashe_tpu_torch.protocol.blocks import ckks as ckks_block
 from flashe_tpu_torch.protocol.blocks import flashe as flashe_block
 from flashe_tpu_torch.protocol.blocks import paillier as paillier_block
 from flashe_tpu_torch.protocol.blocks import plain as plain_block
@@ -88,6 +96,10 @@ __all__ = ["ClientBlock", "Upload", "Selection", "client_upload",
            "client_select", "client_upload_sparse", "arbiter_reduce",
            "client_download", "Arbiter", "Client", "Guest", "Host",
            "with_role", "LossPayload", "is_dropped_marker", "to_device"]
+
+# the schemes whose arbiter block adds ciphertexts, and whose client
+# decrypts the aggregate's n_elements values
+_CIPHERTEXT_SCHEMES = ("paillier", "bfv", "ckks")
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +139,9 @@ class ClientBlock:
 
 
 class Upload(NamedTuple):
-    lanes: object  # ciphertext lanes, plain lanes, or Paillier's object ints
+    # ciphertext or plain lanes, Paillier's object ints, or BFV's and
+    # CKKS's (B, 2, k, N) residues
+    lanes: object
     n_elements: int
     degree: float
     idx_list: list
@@ -221,10 +235,11 @@ def arbiter_reduce(lanes_list, int_bits: int | None = None, block=None,
                    masks=None, total: int | None = None):
     """The aggregate of the clients' uploads.  With `masks` (each upload's
     locations, in the uploads' order) the uploads are sparse: each is first
-    expanded to `total` lanes by `_densify`.  Then, with a Paillier arbiter
-    `block`, its add_ciphertexts; else with int_bits the sum mod
-    2^int_bits as int32 lanes (up to 32 bits the sum runs in int64 and is
-    masked and cast back); else (plain float lanes) the float sum."""
+    expanded to `total` lanes by `_densify`.  Then, with the arbiter
+    `block` of a Paillier, BFV or CKKS session, its add_ciphertexts; else
+    with int_bits the sum mod 2^int_bits as int32 lanes (up to 32 bits the
+    sum runs in int64 and is masked and cast back); else (plain or padded
+    float lanes) the float sum."""
     if masks is not None:
         lanes_list = [_densify(lanes, loc, total)
                       for lanes, loc in zip(lanes_list, masks)]
@@ -248,14 +263,15 @@ def client_download(block, lanes, idx_list, n_elements: int,
                     before: torch.Tensor | None = None) -> torch.Tensor:
     """Decrypt the aggregate of the clients in idx_list and decode it into
     the new global flat vector.  degrees is the survivors' total degree,
-    degree this client's own (1.0 when None).  A Paillier or plain
-    aggregate has no idx_list (None): it is decoded with the registered
-    client count.  After a sparse round n_elements is the total and
+    degree this client's own (1.0 when None).  An aggregate of the other
+    schemes has no idx_list (None): it is decoded with the registered
+    client count, and Paillier, BFV and CKKS decrypt its n_elements
+    values.  After a sparse round n_elements is the total and
     `before`, the last global model, is added back to the decoded mean
     delta."""
     degree = degree or 1.0
     with phase("decryption"):
-        if block.scheme == "paillier":
+        if block.scheme in _CIPHERTEXT_SCHEMES:
             lanes = block.decrypt(lanes, n_elements)
         else:
             lanes = block.decrypt(lanes, idx_list)
@@ -326,19 +342,15 @@ _SCHEMES = {
     "plain": (plain_block, "register_plain_cipher", "create_quantizer"),
     "paillier": (paillier_block, "register_paillier_cipher",
                  "create_cipher"),
+    "bfv": (bfv_block, "register_bfv_cipher", "create_cipher"),
+    "ckks": (ckks_block, "register_ckks_cipher", "create_cipher"),
+    "additive": (additive_block, "register_additive_mask_cipher",
+                 "create_cipher"),
 }
 
 
 def _make_block(role, secure_aggregate, args, transfer_variables,
                 device="cuda"):
-    if secure_aggregate in ("bfv", "ckks"):
-        raise NotImplementedError(
-            f"the {secure_aggregate} blocks are not ported yet (ROADMAP.md, "
-            "queue 1, item 6)")
-    if secure_aggregate == "additive":
-        raise NotImplementedError(
-            "the additive random-pad block is not ported yet (ROADMAP.md, "
-            "queue 1, item 7)")
     if secure_aggregate not in _SCHEMES:
         raise ValueError(f"unknown secure_aggregate scheme {secure_aggregate}")
     mod, reg, create = _SCHEMES[secure_aggregate]
@@ -477,7 +489,7 @@ class Arbiter:
         """Scheme-specific reduce (jzf_aggregator.py:386-450), through
         arbiter_reduce, on the arbiter's device."""
         arrays = [to_device(p.lanes, self.device) for p in payloads]
-        if self.secure_aggregate == "paillier":
+        if self.secure_aggregate in _CIPHERTEXT_SCHEMES:
             return arbiter_reduce(arrays, block=self._block, masks=masks,
                                   total=total)
         return arbiter_reduce(arrays, payloads[0].int_bits, masks=masks,

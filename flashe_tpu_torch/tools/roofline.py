@@ -19,11 +19,17 @@ import subprocess
 import torch
 
 __all__ = ["HBM_BYTES_PER_S", "INT32_PER_SM_CLOCK", "LDS_PER_SM_CLOCK",
-           "Card", "card", "bound_ms", "mont_imads"]
+           "MODMUL_INT_OPS", "Card", "card", "bound_ms", "mont_imads",
+           "ntt_modmuls"]
 
 HBM_BYTES_PER_S = 3.35e12
 INT32_PER_SM_CLOCK = 64
 LDS_PER_SM_CLOCK = 32
+# one modular product of two residues below 2^31 on 32-bit lanes, by
+# Shoup's method with the twiddle's w' = floor(w 2^32 / p) precomputed: the
+# high word of a w', the low words of a w and of that quotient times p
+# (the conditional subtract and a butterfly's add and subtract uncounted)
+MODMUL_INT_OPS = 3
 
 
 class Card:
@@ -77,3 +83,10 @@ def mont_imads(rows: int, L: int, products: int = 1,
     m n_j); a squaring forms each a_i a_j once, L (L + 1) / 2 + L^2."""
     general = products - squarings
     return rows * (general * 4 * L * L + squarings * (L * (L + 1) + 2 * L * L))
+
+
+def ntt_modmuls(batch: int, k: int, N: int) -> int:
+    """Modular products of a negacyclic NTT (or its inverse) of `batch`
+    polynomials over k primes of degree N: N/2 butterflies in each of the
+    log2 N stages, one product each, and the N products of the twist."""
+    return batch * k * (N // 2 * (N.bit_length() - 1) + N)

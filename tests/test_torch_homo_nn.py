@@ -6,6 +6,9 @@ runtime/simulate.run_roles) and the `submit` command on the CPU.
   its own run_roles, both from the JAX init (carried into the port's
   clients before fit): the loss per round agrees at rtol 1e-4 and the
   final params at atol 1e-5.
+- The same MLP under BFV (m = 64), CKKS (N = 64) and the additive pads
+  against the port's plain run: BFV equal, bit for bit, to plain with the
+  same 16-bit quantizer; CKKS and additive within rtol 1e-6 of plain.
 - examples/configs/mlp_flashe.json on the port: every client holds the
   same model after every aggregation, within one quantization step of the
   clients' mean local model.
@@ -105,6 +108,49 @@ def test_plain_training_matches_the_jax_roles():
     for name in ("host0", "host1"):
         for k, v in res[name]["params"].items():
             assert torch.equal(v, res["guest"]["params"][k])
+
+
+_Q16 = {"int_bits": 20, "batch": False, "element_bits": 16,
+        "padding": True, "secure": True}
+
+
+@pytest.mark.parametrize("scheme", ["bfv", "ckks", "additive"])
+def test_general_he_training_matches_plain(scheme, monkeypatch):
+    """The MLP of test_plain_training_matches_the_jax_roles trained under
+    each general-HE baseline at a small ring (BFV m = 64, CKKS N = 64),
+    against the same port run under plain aggregation.  BFV quantizes as
+    the quantized plain baseline does, with the same quantizer seeds, and
+    decrypts the same sums: losses and models equal bit for bit.  CKKS and
+    the additive pads aggregate floats: losses within rtol 1e-6 and
+    parameters within 1e-6 of the float plain run."""
+    shards = federated_dataset("mlp", N_HOSTS + 1, 32, seed=0)
+    q = {"quantize": dict(_Q16)} if scheme == "bfv" else {}
+    extra = {"ckks": {"poly_modulus_degree": 64}}.get(scheme, {})
+    param = HomoNNParam.from_dict(dict(
+        PLAIN, secure_aggregate=scheme,
+        secure_aggregate_args=dict(q, **extra)))
+    if scheme == "bfv":
+        # BFV's ring degree is no field of SecureAggregateArgs (as in the
+        # JAX dataclass): it goes into the dict that every role reads
+        args = param.secure_aggregate_args
+        to_dict = args.to_dict
+        monkeypatch.setattr(args, "to_dict", lambda: dict(to_dict(), m=64))
+    res = _port_roles(param, shards)
+    ref = _port_roles(HomoNNParam.from_dict(
+        dict(PLAIN, secure_aggregate_args=q)), shards)
+    assert len(res["arbiter"]) == 3 and np.all(np.isfinite(res["arbiter"]))
+    for name in ("guest", "host0", "host1"):
+        for k, v in res[name]["params"].items():
+            assert torch.equal(v, res["guest"]["params"][k])
+    if scheme == "bfv":
+        assert res["arbiter"] == ref["arbiter"]
+        for k, v in res["guest"]["params"].items():
+            assert torch.equal(v, ref["guest"]["params"][k])
+        return
+    np.testing.assert_allclose(res["arbiter"], ref["arbiter"], rtol=1e-6)
+    for k, v in res["guest"]["params"].items():
+        np.testing.assert_allclose(v.numpy(), ref["guest"]["params"][k],
+                                   rtol=0, atol=1e-6)
 
 
 def test_flashe_training_every_client_holds_the_aggregate(monkeypatch):

@@ -5,7 +5,8 @@
 - Its ACIQ and its job configuration are copies of the JAX package's,
   value for value.
 - Its entry points run on the card unless the caller asks for the CPU: the
-  ciphers, the codec and models, the quantizer, the session blocks, the
+  ciphers (FLASHE, Paillier, BFV, CKKS, the random pads) and the RNS
+  context, the codec and models, the quantizer, the session blocks, the
   federated round's roles (`with_role`, the role classes), the roles that
   run_roles runs, the trainer and the HomoNN roles.
 """
@@ -25,15 +26,22 @@ import torch
 
 from flashe_tpu.quant import aciq as jaciq
 from flashe_tpu.runtime import config as jconfig
+from flashe_tpu_torch.crypto.bfv import BFVCipher
+from flashe_tpu_torch.crypto.ckks import CKKSCipher
 from flashe_tpu_torch.crypto.flashe import FlasheCipher
 from flashe_tpu_torch.crypto.paillier import PaillierCipher, PaillierKeypair
+from flashe_tpu_torch.crypto.random_pads import PadsCipher, RandomPads
 from flashe_tpu_torch.nn import homo_nn
 from flashe_tpu_torch.nn import models as pmodels
 from flashe_tpu_torch.nn.models import FemnistCNN
 from flashe_tpu_torch.nn.trainer import LocalTrainer
 from flashe_tpu_torch.nn.weights import WeightsCodec
 from flashe_tpu_torch.ops.modmath import MontCtx, PairMontCtx
+from flashe_tpu_torch.ops.ntt import RnsContext
 from flashe_tpu_torch.protocol import aggregator
+from flashe_tpu_torch.protocol.blocks import additive as ablocks
+from flashe_tpu_torch.protocol.blocks import bfv as bblocks
+from flashe_tpu_torch.protocol.blocks import ckks as cblocks
 from flashe_tpu_torch.protocol.blocks import flashe as fblocks
 from flashe_tpu_torch.protocol.blocks import paillier as pblocks
 from flashe_tpu_torch.protocol.blocks import plain as plblocks
@@ -75,7 +83,10 @@ def test_port_and_chip_smoke_import_no_jax_package():
                  "crypto.dh", "protocol.payload", "protocol.dh_sync",
                  "protocol.blocks.plain", "runtime.simulate",
                  "runtime.config", "data", "nn.models", "nn.trainer",
-                 "nn.homo_nn", "runtime.checkpoint", "__main__"):
+                 "nn.homo_nn", "runtime.checkpoint", "__main__", "ops.ntt",
+                 "crypto.bfv", "crypto.ckks", "crypto.random_pads",
+                 "protocol.blocks.bfv", "protocol.blocks.ckks",
+                 "protocol.blocks.additive"):
         assert f"flashe_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -137,6 +148,10 @@ _ARGS = {"key_length": 128, "quantize": {
     "secure": True}}
 
 
+_HE_ARGS = dict(_ARGS, m=64, poly_modulus_degree=64, quantize=dict(
+    _ARGS["quantize"], int_bits=20, batch=False))
+
+
 def _constructors():
     keypair = PaillierKeypair.generate_keypair(128)
     n = keypair[0].n
@@ -163,6 +178,20 @@ def _constructors():
         "plain.Arbiter": lambda: plblocks.Arbiter(_ARGS),
         "plain.Guest": lambda: plblocks.Guest(_ARGS),
         "plain.Host": lambda: plblocks.Host(_ARGS),
+        "RnsContext": lambda: RnsContext(64, [7681, 10753]),
+        "BFVCipher": lambda: BFVCipher(1032193, 64, flagBatching=True),
+        "CKKSCipher": lambda: CKKSCipher(64),
+        "PadsCipher": lambda: PadsCipher(),
+        "RandomPads": lambda: RandomPads(7),
+        "bfv.Arbiter": lambda: bblocks.Arbiter(_HE_ARGS),
+        "bfv.Guest": lambda: bblocks.Guest(_HE_ARGS),
+        "bfv.Host": lambda: bblocks.Host(_HE_ARGS),
+        "ckks.Arbiter": lambda: cblocks.Arbiter(_HE_ARGS),
+        "ckks.Guest": lambda: cblocks.Guest(_HE_ARGS),
+        "ckks.Host": lambda: cblocks.Host(_HE_ARGS),
+        "additive.Arbiter": lambda: ablocks.Arbiter({}),
+        "additive.Guest": lambda: ablocks.Guest({}),
+        "additive.Host": lambda: ablocks.Host({}),
         "aggregator.Arbiter": lambda: aggregator.Arbiter(),
         "aggregator.Guest": lambda: aggregator.Guest(),
         "aggregator.Host": lambda: aggregator.Host(),
@@ -187,6 +216,9 @@ def _constructors():
     "MontCtx", "PairMontCtx", "QuantizingClient", "Arbiter", "Guest", "Host",
     "make_session", "choose_masking", "flashe.Arbiter", "flashe.Guest",
     "flashe.Host", "plain.Arbiter", "plain.Guest", "plain.Host",
+    "RnsContext", "BFVCipher", "CKKSCipher", "PadsCipher", "RandomPads",
+    "bfv.Arbiter", "bfv.Guest", "bfv.Host", "ckks.Arbiter", "ckks.Guest",
+    "ckks.Host", "additive.Arbiter", "additive.Guest", "additive.Host",
     "aggregator.Arbiter", "aggregator.Guest", "aggregator.Host",
     "with_role", "run_roles", "MLP", "CifarResNet", "CharLSTM",
     "build_model", "LocalTrainer", "HomoNNGuest", "HomoNNHost",

@@ -9,7 +9,11 @@ and that it lies within 5e-4 of what the round should give (FedAvg of the
 clients' vectors for a dense round), as the JAX tests do; FLASHE, the
 batched 120-bit lanes, plain, Paillier (a 512-bit key dense, 256-bit
 sparse) and the sparse rounds; a host that crashes, and a slow host that
-is dropped, notified, and rejoins, in one and in two partitions.
+is dropped, notified, and rejoins, in one and in two partitions.  The
+general-HE baselines at small rings: BFV (m = 64, in one and in two
+partitions), CKKS (N = 64) and the additive pads, within the tolerances
+of tests/test_protocol_baselines.py (5e-4, 1e-4, 1e-4), the BFV aggregate
+equal to the clients' summed quantized values.
 
 The slice as a whole:
 - the federated FLASHE round equals, bit for bit, the round that the
@@ -23,11 +27,14 @@ The slice as a whole:
   within 5e-4 of each other and of FedAvg (the quantizers draw their
   uniforms from different generators, so the match is statistical: each
   side is within one quantization step, about 1.5e-4 here, per client);
-- ModelPayload.pack() bytes equal the JAX payload's at int_bits 20 and 120.
+- ModelPayload.pack() bytes equal the JAX payload's at int_bits 20 and 120,
+  and a (B, 2, k, N) ring-ciphertext payload splits and joins as the JAX
+  payload's does.
 """
 
 from __future__ import annotations
 
+import pickle
 import threading
 import time
 
@@ -39,6 +46,7 @@ import torch
 from flashe_tpu.nn.weights import WeightsCodec as JCodec
 from flashe_tpu.protocol import aggregator as jaggregator
 from flashe_tpu.protocol.payload import ModelPayload as JPayload
+from flashe_tpu.protocol.payload import partition_lanes as jpartition_lanes
 from flashe_tpu.runtime.simulate import run_roles as jrun_roles
 from flashe_tpu_torch.crypto.flashe import FlasheCipher
 from flashe_tpu_torch.nn.weights import WeightsCodec
@@ -49,7 +57,7 @@ from flashe_tpu_torch.protocol.aggregator import (
 from flashe_tpu_torch.protocol.blocks import paillier as paillier_blocks
 from flashe_tpu_torch.protocol.blocks.flashe import arbiter_masking
 from flashe_tpu_torch.protocol.payload import (
-    ModelPayload, merge_lane_parts, partition_lanes)
+    ModelPayload, host_lanes, merge_lane_parts, partition_lanes)
 from flashe_tpu_torch.protocol.sparsify import Sparsifier, decode_locations
 from flashe_tpu_torch.quant.quantizer import QuantizingClient
 from flashe_tpu_torch.runtime.simulate import run_roles
@@ -485,8 +493,6 @@ def test_payload_pack_bytes_match_jax(int_bits):
 def test_payload_pickles_lanes_from_the_host():
     """A pickled payload (the TCP transport) carries host numpy, whether
     packed or not; in memory it keeps the tensor."""
-    import pickle
-
     lanes = torch.tensor([1, -1, 7], dtype=torch.int32)
     p = ModelPayload(lanes, 3, 20, degree=1.0)
     assert p.lanes is lanes
@@ -500,10 +506,125 @@ def test_payload_pickles_lanes_from_the_host():
     assert f.wire_bytes() == 8
 
 
-@pytest.mark.parametrize("scheme", ["bfv", "ckks", "additive"])
-def test_unported_schemes_raise(scheme):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        aggregator._make_block("guest", scheme, {}, None, device="cpu")
+# the general-HE baselines at small rings, with the tolerances of
+# tests/test_protocol_baselines.py: BFV quantizes (a few quantization
+# steps), CKKS's slots carry noise / scale ~1e-11 and the additive pads
+# float32 rounding
+_HE_ROUNDS = {
+    "bfv": (_args(p=1964769281, m=64), 5e-4),
+    "bfv-partitioned": (_args(p=1964769281, m=64, num_partitions=2), 5e-4),
+    "ckks": ({"poly_modulus_degree": 64, "mode": "parallel",
+              "num_partitions": 1}, 1e-4),
+    "additive": ({"mode": "parallel", "num_partitions": 1}, 1e-4),
+}
+
+
+@pytest.mark.parametrize("case", list(_HE_ROUNDS))
+def test_general_he_round_matches_fedavg(case):
+    """Two rounds of guest + 2 hosts through with_role / run_roles, every
+    role's session setup included (BFV: the guest's keys, its secret
+    wrapped to the hosts, its public key forwarded by the arbiter; CKKS:
+    the wrapped secret; additive: the pairwise DH secrets): every client
+    holds the same model, within the scheme's tolerance of FedAvg."""
+    scheme = case.split("-")[0]
+    args, atol = _HE_ROUNDS[case]
+    flats, codec = _dense_inputs()
+    keep = {"bfv": lambda agg: agg._block.cipher.public_parts(),
+            "ckks": lambda agg: agg._block.cipher.serialize_secret(),
+            "additive": lambda agg: len(agg._block.cipher._pads)}[scheme]
+    res = _roles(scheme, args, flats, codec, rounds=2, keep=keep)
+    want = np.mean(flats, axis=0)
+    g = res["guest"][0]
+    for outs, kept in _clients(res):
+        assert np.max(np.abs(outs[0] - want)) < atol
+        for r in range(2):
+            np.testing.assert_array_equal(outs[r], g[r])
+        if scheme == "bfv":
+            for mine, guest in zip(kept, res["guest"][1]):
+                np.testing.assert_array_equal(mine, guest)
+        elif scheme == "ckks":
+            assert kept == res["guest"][1]
+        else:
+            assert kept == N_HOSTS  # a pad with every other client
+    assert res["arbiter"] == [[], []]
+
+
+def test_bfv_round_sums_the_quantized_uploads():
+    """The BFV aggregate that every client decrypts equals the clients'
+    summed quantized values (mod t, which they never reach)."""
+    flats, codec = _dense_inputs()
+    args, _ = _HE_ROUNDS["bfv"]
+
+    def keep(agg):
+        return agg._block.last
+
+    def record(agg):
+        block = agg._block
+        quantize, decrypt = block.quantize, block.decrypt
+
+        def recorded_quantize(flat, uniforms=None):
+            block.q = quantize(flat, uniforms=uniforms)
+            return block.q
+
+        def recorded_decrypt(cts, count=None):
+            block.last = (block.q, decrypt(cts, count))
+            return block.last[1]
+
+        block.quantize, block.decrypt = recorded_quantize, recorded_decrypt
+        return agg
+
+    real = aggregator.with_role
+
+    def with_role(role, *a, **kw):
+        agg = real(role, *a, **kw)
+        return agg if role == "arbiter" else record(agg)
+
+    aggregator.with_role = with_role
+    try:
+        res = _roles("bfv", args, flats, codec, keep=keep)
+    finally:
+        aggregator.with_role = real
+    qs = [kept[0] for _, kept in _clients(res)]
+    want = sum(q.long() for q in qs)
+    assert int(want.max()) < (1 << 20)
+    for _, (_, dec) in _clients(res):
+        assert dec.dtype == torch.int32 and dec.shape == want.shape
+        assert torch.equal(dec.long(), want)
+
+
+def test_unknown_scheme_raises():
+    with pytest.raises(ValueError, match="unknown secure_aggregate"):
+        aggregator._make_block("guest", "rsa", {}, None, device="cpu")
+
+
+def test_payload_of_ring_ciphertexts():
+    """A BFV or CKKS upload is a (B, 2, k, N) int32 tensor: on the host it
+    is the same uint32 array, to_device gives the tensor back, it splits
+    and joins along its B ciphertexts as the JAX payload does (in memory
+    and pickled), and its wire bytes are its bytes."""
+    rng = np.random.default_rng(3)
+    cts = rng.integers(0, 1 << 31, (5, 2, 3, 64), dtype=np.uint32)
+    cts[0, 0, 0, :2] = (0x80000001, 0xFFFFFFFF)  # negative as int32
+    port = ModelPayload(torch.from_numpy(cts.view(np.int32)), 300, None,
+                        degree=1.0)
+    on_host = host_lanes(port.lanes)
+    assert on_host.dtype == np.uint32 and on_host.shape == cts.shape
+    np.testing.assert_array_equal(on_host, cts)
+    back = aggregator.to_device(on_host, torch.device("cpu"))
+    assert back.dtype == torch.int32 and torch.equal(back, port.lanes)
+    ref = JPayload(jnp.asarray(cts), 300, None, degree=1.0)
+    assert port.wire_bytes() == ref.wire_bytes() == cts.nbytes
+    assert port.pack() is port and port.n_lanes == ref.n_lanes == 5
+    parts = partition_lanes(port, 2)
+    ref_parts = jpartition_lanes(ref, 2)
+    assert parts[0].shape_list == ref_parts[0].shape_list == [3, 2]
+    assert parts[0].n_elements == 300 and parts[1].n_elements == 0
+    for mine, theirs in zip(parts, ref_parts):
+        np.testing.assert_array_equal(host_lanes(mine.lanes),
+                                      np.asarray(theirs.lanes))
+    assert torch.equal(merge_lane_parts(parts).lanes, port.lanes)
+    wired = merge_lane_parts([pickle.loads(pickle.dumps(p)) for p in parts])
+    np.testing.assert_array_equal(wired.lanes, cts)
 
 
 def test_local_lane_shards_raise():

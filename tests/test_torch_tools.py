@@ -45,6 +45,18 @@ def test_squaring_forms_each_cross_product_once(L):
         3 * 4 * L * L + 2 * roofline.mont_imads(1, L, 1, 1))
 
 
+def test_ntt_bounds():
+    # FemnistCNN's BFV upload: 148 polynomials x 6 primes x 8,192
+    # coefficients, 13 stages of 4,096 butterflies and the twist
+    products = roofline.ntt_modmuls(148, 6, 8192)
+    assert products == 148 * 6 * (4096 * 13 + 8192)
+    ms, by = roofline.bound_ms(roofline.MODMUL_INT_OPS * products,
+                               2 * 4 * 148 * 6 * 8192, CARD)
+    assert by == "bytes"
+    assert ms == pytest.approx(2 * 4 * 148 * 6 * 8192 / 3.35e12 * 1e3)
+    assert roofline.ntt_modmuls(1, 1, 64) == 6 * 32 + 64
+
+
 def test_pipes_are_not_added():
     # integer ops and shared-memory loads issue side by side: the bound is
     # the slower pipe's time, not the sum
