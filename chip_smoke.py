@@ -137,6 +137,27 @@ Phases, each of which fails the run:
      guest's phases, the calls of the ring's device code an iteration,
      and their times at the round's shapes (CUDA events) beside their
      bounds, one JSON line of them, and the phase's peak device memory.
+ 12. the job runtime (run after phase 10, with submit's TF32 settings),
+     each command a process of its own, every store in a temporary
+     directory: (a) `python -m flashe_tpu_torch submit -c
+     examples/configs/cnn_flashe_q16_b1_pad.json --processes
+     --checkpoint-dir D --publish phase12 --json`, 11 party processes
+     (guest, 9 hosts, arbiter) on the one card over the TCP broker: every
+     task `success` in the job registry, every client's parameters on the
+     card, 2 double mask launches an iteration in each client process and
+     no other launch, none at the arbiter, the 10 checkpoints equal bit
+     for bit, loss_per_round finite and within 1e-3 relative of phase
+     10's in-process submit; each party's steady iteration by phase beside
+     phase 10's, the processes' start-up seconds and peak device memory
+     printed; (b) `predict --model phase12`: aggregate_iter 2 and scores
+     within 1e-5 of the guest's checkpoint loaded in this process; (c)
+     `submit-dsl --processes` of examples/dsl/train_job_conf.json made 1
+     guest + 9 hosts with the FEMNIST CNN as a Keras nn_define (1,206,590
+     parameters), max_iter 2, over DataIO tables that DataStore.put wrote
+     from the port's federated_dataset: the same job checks, finite
+     losses, every client's Evaluation.  The party processes write what
+     is checked (device, launches, a digest of the final model, phases)
+     into their outputs (runtime/task_executor.py).
 It prints ptxas's registers and spills of every kernel instance after the
 build and, where the toolkit has cuobjdump, the mask kernel's instruction
 counts; the kernels' JSON line and the card's name and power limit, then as
@@ -163,6 +184,8 @@ import contextlib
 import io
 import json
 import math
+import os
+import pickle
 import random
 import shutil
 import statistics
@@ -185,8 +208,10 @@ from flashe_tpu_torch.fed.transport import default_parties
 from flashe_tpu_torch.fed.variables import HomoTransferVariables
 from flashe_tpu_torch.__main__ import main as cli_main
 from flashe_tpu_torch.crypto.paillier import PaillierKeypair
-from flashe_tpu_torch.data import federated_dataset
+from flashe_tpu_torch.data import federated_dataset, synthetic_dataset
+from flashe_tpu_torch.data.store import DataStore
 from flashe_tpu_torch.nn.homo_nn import HomoNNArbiter, HomoNNGuest, HomoNNHost
+from flashe_tpu_torch.nn.keras_define import KerasDefineModel
 from flashe_tpu_torch.nn.models import FemnistCNN, init_params
 from flashe_tpu_torch.nn.trainer import LocalTrainer
 from flashe_tpu_torch.nn.weights import WeightsCodec
@@ -203,10 +228,12 @@ from flashe_tpu_torch.protocol.blocks.flashe import arbiter_masking
 from flashe_tpu_torch.protocol.payload import ModelPayload
 from flashe_tpu_torch.protocol.sparsify import Sparsifier, decode_locations
 from flashe_tpu_torch.quant.quantizer import QuantizingClient
+from flashe_tpu_torch.runtime.checkpoint import load_checkpoint
 from flashe_tpu_torch.runtime.config import HomoNNParam
+from flashe_tpu_torch.runtime.job_manager import JobRegistry
 from flashe_tpu_torch.runtime.simulate import run_roles
 from flashe_tpu_torch.runtime.tracking import (
-    Tracker, phase, set_tracker, tracker)
+    Tracker, set_tracker, tracker)
 from flashe_tpu_torch.tools import roofline
 
 INT_BITS, ELEMENT_BITS, N_CLIENTS = 20, 16, 10
@@ -253,6 +280,39 @@ TRAIN_CONFIGS = (("cnn_flashe_q16_b1_pad.json", 1_206_590),
 TRAIN_STEPS = 20
 TRAIN_PHASES = ("local train", "encoding", "encryption", "upload",
                 "download", "decryption", "decoding")
+ARBITER_PHASES = ("collect", "aggregate", "dispatch")
+
+# phase 12, the job runtime: phase 10's first configuration as one process
+# a party (its in-process submit the reference, loss_per_round within
+# RUNTIME_LOSS_RTOL), predict from the published guest model (scores
+# within PREDICT_ATOL of the checkpoint in this process), and a 10-party
+# DSL job of examples/dsl/train_job_conf.json with the FEMNIST CNN as a
+# Keras nn_define; RUNTIME_TIMEOUT_S bounds each command
+RUNTIME_CONFIG = TRAIN_CONFIGS[0][0]
+RUNTIME_LOSS_RTOL, PREDICT_ATOL = 1e-3, 1e-5
+RUNTIME_TIMEOUT_S = 420
+FEMNIST_DEFINE = {"class_name": "Sequential", "config": {
+    "name": "sequential", "layers": [
+        {"class_name": "Reshape",
+         "config": {"name": "reshape", "target_shape": [28, 28, 1]}},
+        {"class_name": "Conv2D",
+         "config": {"name": "conv2d", "filters": 32, "kernel_size": [3, 3],
+                    "activation": "relu"}},
+        {"class_name": "Conv2D",
+         "config": {"name": "conv2d_1", "filters": 64,
+                    "kernel_size": [3, 3], "activation": "relu"}},
+        {"class_name": "MaxPooling2D",
+         "config": {"name": "max_pooling2d", "pool_size": [2, 2]}},
+        {"class_name": "Dropout", "config": {"name": "dropout",
+                                             "rate": 0.25}},
+        {"class_name": "Flatten", "config": {"name": "flatten"}},
+        {"class_name": "Dense",
+         "config": {"name": "dense", "units": 128, "activation": "relu"}},
+        {"class_name": "Dropout", "config": {"name": "dropout_1",
+                                             "rate": 0.5}},
+        {"class_name": "Dense",
+         "config": {"name": "dense_1", "units": 62,
+                    "activation": "softmax"}}]}}
 
 # phase 11, the general-HE baselines: BFV at t and m of
 # cnn_bfv_q16_binf_pad.json (protocol/blocks/bfv.py's defaults), CKKS at N
@@ -1808,6 +1868,19 @@ def run_tcp_round(dev, model):
     return seconds, worst, res, packed
 
 
+def iteration_phases(log, start):
+    """A Tracker's phase_log split into iterations, each from a `start`
+    phase ("local train" at a client, "collect" at the arbiter) to the
+    next: a list of {phase: ms}.  Phases before the first are dropped."""
+    iters = []
+    for name, secs in log:
+        if name == start:
+            iters.append({})
+        if iters:
+            iters[-1][name] = iters[-1].get(name, 0.0) + secs * 1e3
+    return iters
+
+
 def run_training(dev, name, cfg=None, record=record_client):
     """Phase 10: examples/configs/<name> as `python -m flashe_tpu_torch
     submit` runs it (HomoNNGuest, HomoNNHost x (n - 1) and HomoNNArbiter,
@@ -1815,11 +1888,11 @@ def run_training(dev, name, cfg=None, record=record_client):
     federated_dataset), on `dev`; `cfg`, where given, is that
     configuration's dict as phase 11 varies it.  Each client records its
     upload and its decrypted lanes every iteration (`record`, on the
-    aggregator its fit makes) and its model after every aggregation, the
-    guest its phases an iteration (a synchronize at each phase's ends,
-    local training timed as a phase of its own).  Returns the mask
-    kernel's launches by mode and the Montgomery kernels', and what the
-    checks need."""
+    aggregator its fit makes) and its model after every aggregation; every
+    party its phases an iteration (a synchronize of the card, every
+    thread's work, at each phase's ends; local training is a phase of the
+    client's fit).  Returns the mask kernel's launches by mode and the
+    Montgomery kernels', and what the checks need."""
     if cfg is None:
         with open(ROOT / "examples" / "configs" / name) as f:
             cfg = json.load(f)
@@ -1828,6 +1901,7 @@ def run_training(dev, name, cfg=None, record=record_client):
     shards = federated_dataset(cfg["dataset"], n, cfg["samples_per_client"],
                                seed=cfg.get("seed", 0))
     recs = [{"models": [], "phases": []} for _ in range(n)]
+    arbiter_rec = {}
     local = threading.local()
     with_role = aggregator.with_role
 
@@ -1839,29 +1913,19 @@ def run_training(dev, name, cfg=None, record=record_client):
 
     def client(cls, trv, i):
         rec = local.rec = recs[i]
-        if i == 0:
-            set_tracker(Tracker("guest", synchronize=torch.cuda.synchronize))
+        set_tracker(Tracker("guest" if i == 0 else f"host{i - 1}",
+                            synchronize=torch.cuda.synchronize))
         c = cls(param, seed=i, device=dev)
         c._build(shards[i][0][:1])
-        train, install = c.trainer.train, c.trainer.set_model_weights
-        marks = []
-
-        def timed_train(*args, **kw):
-            marks.append(dict(tracker().phase_totals))
-            with phase("local train"):
-                return train(*args, **kw)
+        install = c.trainer.set_model_weights
 
         def recorded_install(params):
             install(params)
             rec["models"].append(c.codec.flatten(c.trainer.params))
 
-        c.trainer.train = timed_train
         c.trainer.set_model_weights = recorded_install
         c.fit(trv, *shards[i])
-        marks.append(dict(tracker().phase_totals))
-        rec["phases"] = [{k: (v - a.get(k, 0.0)) * 1e3 for k, v in b.items()
-                          if v > a.get(k, 0.0)}
-                         for a, b in zip(marks, marks[1:])]
+        rec["phases"] = iteration_phases(tracker().phase_log, "local train")
         model, opt = c.trainer.model, c.trainer.optimizer
         rec["on_card"] = (
             all(t.is_cuda for t in model.parameters())
@@ -1871,7 +1935,11 @@ def run_training(dev, name, cfg=None, record=record_client):
         rec["n_params"] = c.codec.total
 
     def arbiter(trv):
-        return HomoNNArbiter(param, device=dev).fit(trv)
+        set_tracker(Tracker("arbiter", synchronize=torch.cuda.synchronize))
+        losses = HomoNNArbiter(param, device=dev).fit(trv)
+        arbiter_rec["phases"] = iteration_phases(tracker().phase_log,
+                                                 "collect")
+        return losses
 
     torch.cuda.synchronize()
     reset_launches()
@@ -1889,8 +1957,8 @@ def run_training(dev, name, cfg=None, record=record_client):
     finally:
         aggregator.with_role = with_role
     return dict(fm.mode_launches), dict(mg.launches), seconds, dict(
-        losses=res["arbiter"], recs=recs, param=param, n=n,
-        samples=cfg["samples_per_client"])
+        losses=res["arbiter"], recs=recs, arbiter=arbiter_rec, param=param,
+        n=n, samples=cfg["samples_per_client"])
 
 
 def check_training(name, launches, mont, r, n_params):
@@ -2025,18 +2093,26 @@ def print_guest_phases(r):
 
 
 def run_training_phase(dev, tf32):
-    """Phase 10 with torch's own TF32 settings, as `submit` runs."""
+    """Phase 10 with torch's own TF32 settings, as `submit` runs.  Returns
+    the launches of each configuration, and RUNTIME_CONFIG's in-process
+    run (its run_training result and peak device memory, and submit's
+    JSON), which phase 12 compares its processes with."""
     with submit_tf32(tf32):
         print(f"federated training: torch.backends.cudnn.allow_tf32="
               f"{torch.backends.cudnn.allow_tf32} (convolutions in TF32), "
               f"torch.backends.cuda.matmul.allow_tf32="
               f"{torch.backends.cuda.matmul.allow_tf32}: torch's defaults, "
               "as submit runs")
-        out = {}
+        out, in_process = {}, {}
         for name, n_params in TRAIN_CONFIGS:
+            torch.cuda.reset_peak_memory_stats(dev)
             launches, mont, secs, r = run_training(dev, name)
             check_training(name, launches, mont, r, n_params)
             out[name] = {**launches, **mont}
+            if name == RUNTIME_CONFIG:
+                in_process["train"] = r
+                in_process["peak_bytes"] = torch.cuda.max_memory_allocated(
+                    dev)
             iters = r["param"].max_iter
             print(f"federated training {name} ({r['n']} clients x "
                   f"{r['samples']} samples, {r['param'].model} "
@@ -2053,6 +2129,7 @@ def run_training_phase(dev, tf32):
                   f"parameters and Adam state on the card")
             print_guest_phases(r)
         out["submit"], secs, result = run_submit(TRAIN_CONFIGS[0][0])
+        in_process["submit"] = result
         print(f"python -m flashe_tpu_torch submit -c examples/configs/"
               f"{TRAIN_CONFIGS[0][0]} --json, in this process: {secs:.2f} s, "
               f"loss_per_round {result['loss_per_round']}, launches "
@@ -2065,7 +2142,7 @@ def run_training_phase(dev, tf32):
               f"{np.mean(losses[-5:]):.4f}); steps 2-{TRAIN_STEPS} "
               f"{secs / (TRAIN_STEPS - 1) * 1e3:.2f} ms a step, "
               f"{128 * (TRAIN_STEPS - 1) / secs:,.0f} samples/s")
-        return out
+        return out, in_process
 
 
 # ---------------------------------------------------------------------------
@@ -2490,6 +2567,288 @@ def run_he_phase(dev, model, card, tf32):
     return ring
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the job runtime, one OS process a party
+# ---------------------------------------------------------------------------
+
+def runtime_env(root: Path) -> dict:
+    """The environment of phase 12's commands: every store of the port
+    under `root`, none in the home directory."""
+    env = dict(os.environ)
+    env.update(FLASHE_JOBS_DIR=str(root / "jobs"),
+               FLASHE_DATA_DIR=str(root / "data"),
+               FLASHE_TORCH_MODELS_DIR=str(root / "models"),
+               FLASHE_PERMISSIONS_PATH=str(root / "permissions.json"))
+    return env
+
+
+def run_cli(argv, env):
+    """`python -m flashe_tpu_torch <argv>`, a process of its own from the
+    repository root, on the card; returns its last line of output as JSON
+    and its seconds.  A command that fails fails the phase, with the end
+    of its errors."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "flashe_tpu_torch", *argv],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=RUNTIME_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"python -m flashe_tpu_torch {' '.join(argv)}:"
+                             f" rc {res.returncode}\n{res.stderr[-6000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1]), secs
+
+
+def stop_jobs(root: Path):
+    """SIGTERM the recorded PIDs of every job still running under root
+    (a command cut at its time limit leaves its party processes)."""
+    reg = JobRegistry(str(root / "jobs"))
+    for rec in reg.list_jobs():
+        if rec["status"] == "running":
+            reg.stop(rec["job_id"])
+
+
+def read_job(root: Path, job: dict):
+    """A job's record in the registry and each party's output, which this
+    process unpickles without touching the card (numpy and Python
+    only)."""
+    rec = JobRegistry(str(root / "jobs")).query(job["job_id"])
+    outs = {}
+    for task in rec["tasks"]:
+        with open(Path(job["workdir"]) / f"{task}.out", "rb") as f:
+            outs[task] = pickle.load(f)
+    return rec, outs
+
+
+def client_tasks(n):
+    return ["guest_0"] + [f"host_{h}" for h in range(n - 1)]
+
+
+def check_job(what, rec, outs, n, iters):
+    """Every task `success` in the registry; every client's parameters on
+    the card, its process 2 double mask launches an iteration and no other
+    launch, its final model the guest's bit for bit (model_sha256); no
+    launch at the arbiter."""
+    tasks = {t: v["status"] for t, v in rec["tasks"].items()}
+    if (rec["status"] != "success"
+            or sorted(tasks) != sorted(client_tasks(n) + ["arbiter_0"])
+            or set(tasks.values()) != {"success"}):
+        raise AssertionError(f"{what}: job {rec['status']}, tasks {tasks}")
+    want = dict.fromkeys(fm.MODES, 0)
+    want["double"] = 2 * iters
+    arb = outs["arbiter_0"]
+    if any(arb["mask_launches"].values()) or any(
+            arb["mont_launches"].values()):
+        raise AssertionError(f"{what}: the arbiter launched "
+                             f"{arb['mask_launches']}, {arb['mont_launches']}")
+    for task in client_tasks(n):
+        out = outs[task]
+        if not out["device"].startswith("cuda"):
+            raise AssertionError(f"{what}: {task}'s parameters lay on "
+                                 f"{out['device']}")
+        if out["mask_launches"] != want or any(out["mont_launches"].values()):
+            raise AssertionError(f"{what}: {task} launched "
+                                 f"{out['mask_launches']} and "
+                                 f"{out['mont_launches']}, expected {want}")
+        if out["model_sha256"] != outs["guest_0"]["model_sha256"]:
+            raise AssertionError(f"{what}: {task}'s final model differs from "
+                                 "the guest's")
+
+
+def steady(log, start, iters):
+    """The last iteration of a phase_log, {phase: ms}."""
+    ph = iteration_phases(log, start)
+    if len(ph) != iters:
+        raise AssertionError(f"{len(ph)} iterations in a phase log, "
+                             f"expected {iters}")
+    return ph[-1]
+
+
+def run_runtime_processes(root, env, in_process):
+    """(a) `submit --processes --checkpoint-dir --publish` of
+    RUNTIME_CONFIG: the job's checks, the 10 clients' checkpoints equal bit
+    for bit, loss_per_round within RUNTIME_LOSS_RTOL of phase 10's
+    in-process submit of the same configuration."""
+    path = ROOT / "examples" / "configs" / RUNTIME_CONFIG
+    with open(path) as f:
+        cfg = json.load(f)
+    n, iters = cfg["n_clients"], cfg["param"]["max_iter"]
+    ckpt_dir = root / "ckpt"
+    out, secs = run_cli(["submit", "-c", str(path), "--processes",
+                         "--checkpoint-dir", str(ckpt_dir), "--publish",
+                         "phase12", "--json"], env)
+    rec, outs = read_job(root, out["job"])
+    check_job("submit --processes", rec, outs, n, iters)
+    ckpts = [load_checkpoint(str(ckpt_dir / f"{t}.ckpt"))
+             for t in client_tasks(n)]
+    for t, c in zip(client_tasks(n), ckpts):
+        if c["aggregate_iter"] != iters or any(
+                not np.array_equal(v, ckpts[0]["params"][k])
+                for k, v in c["params"].items()):
+            raise AssertionError(f"submit --processes: {t}'s checkpoint "
+                                 "differs from the guest's")
+    losses = np.array(out["loss_per_round"])
+    ref = np.array(in_process["submit"]["loss_per_round"])
+    if (losses.shape != (iters,) or not np.all(np.isfinite(losses))
+            or not np.allclose(losses, ref, rtol=RUNTIME_LOSS_RTOL, atol=0)):
+        raise AssertionError(f"submit --processes: loss_per_round "
+                             f"{losses.tolist()}, in process "
+                             f"{ref.tolist()} (rtol {RUNTIME_LOSS_RTOL})")
+    return dict(cfg=cfg, n=n, iters=iters, secs=secs, out=out, outs=outs,
+                ckpt=ckpt_dir / "guest_0.ckpt")
+
+
+def run_runtime_predict(dev, env, a):
+    """(b) `predict --model phase12` (the guest's published model): its
+    aggregate_iter, and its scores within PREDICT_ATOL of the guest's
+    checkpoint loaded in this process."""
+    cfg = a["cfg"]
+    param = HomoNNParam.from_dict(cfg["param"])
+    preds = a["ckpt"].parent / "preds.npy"
+    out, secs = run_cli(["predict", "-c", str(ROOT / "examples" / "configs"
+                                              / RUNTIME_CONFIG),
+                         "--model", "phase12", "--out", str(preds)], env)
+    x, _ = synthetic_dataset(cfg.get("dataset", param.model),
+                             cfg.get("samples_per_client", 128),
+                             seed=cfg.get("seed", 0))
+    guest = HomoNNGuest(param, device=dev)
+    guest.load_model(str(a["ckpt"]), x[:1])
+    want = guest.predict(x)
+    got = np.load(preds)
+    err = float(np.abs(got - want).max()) if got.shape == want.shape \
+        else float("inf")
+    if (out["aggregate_iter"] != a["iters"] or out["n"] != len(x)
+            or not err <= PREDICT_ATOL):
+        raise AssertionError(f"predict: {out}, scores {got.shape} against "
+                             f"{want.shape}, max |diff| {err}")
+    return out, secs, err
+
+
+def run_runtime_dsl(dev, root, env):
+    """(c) `submit-dsl --processes` of examples/dsl/train_job_conf.json
+    made 1 guest + 9 hosts, the FEMNIST CNN as a Keras nn_define, max_iter
+    2, DataIO tables of federated_dataset("femnist", 10, 128, seed=0)
+    written by DataStore.put: the job's checks, finite losses and every
+    client's Evaluation."""
+    with open(ROOT / "examples" / "dsl" / "train_job_conf.json") as f:
+        conf = json.load(f)
+    n, iters = N_CLIENTS, 2
+    store = DataStore(str(root / "data"))
+    tables = []
+    for i, (x, y) in enumerate(federated_dataset("femnist", n, 128,
+                                                 seed=0)):
+        store.put("femnist", f"party_{i}", x, y)
+        tables.append({"namespace": "femnist", "name": f"party_{i}"})
+    model = KerasDefineModel(FEMNIST_DEFINE, device=dev)
+    count = sum(v.numel() for v in init_params(model, x[:1]).values())
+    if count != N_FEMNIST:
+        raise AssertionError(f"the FEMNIST nn_define has {count} parameters")
+    conf["role"]["host"] = [10000 + h for h in range(n - 1)]
+    rp = conf["role_parameters"]
+    rp["guest"]["args"]["data"]["train_data"] = tables[:1]
+    rp["host"]["args"]["data"]["train_data"] = tables[1:]
+    rp["host"]["dataio_0"] = {k: v[:1] * (n - 1)
+                              for k, v in rp["host"]["dataio_0"].items()}
+    conf["algorithm_parameters"]["homo_nn_0"].update(
+        nn_define=FEMNIST_DEFINE, max_iter=iters)
+    conf_path = root / "train_job_conf.json"
+    conf_path.write_text(json.dumps(conf))
+    out, secs = run_cli(["submit-dsl", "-d", str(
+        ROOT / "examples" / "dsl" / "train_job_dsl.json"), "-c",
+        str(conf_path), "--processes", "--json"], env)
+    rec, outs = read_job(root, out["job"])
+    check_job("submit-dsl --processes", rec, outs, n, iters)
+    losses = outs["arbiter_0"]["homo_nn_0"]["loss_history"]
+    if len(losses) != iters or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"submit-dsl: losses {losses}")
+    for task in client_tasks(n):
+        ev = outs[task].get("evaluation_0") or {}
+        if not 0.0 <= ev.get("accuracy", -1.0) <= 1.0:
+            raise AssertionError(f"submit-dsl: {task}'s Evaluation {ev}")
+    return dict(n=n, iters=iters, secs=secs, out=out, outs=outs,
+                losses=losses, conf=conf)
+
+
+def print_runtime_profile(a, in_process, smi):
+    """Each party's steady iteration by phase, in process (phase 10) and
+    as processes (phase 12 (a))."""
+    train = in_process["train"]
+    print(f"the steady iteration ({a['iters']} of {a['iters']}) of "
+          f"{RUNTIME_CONFIG} by party, ms, host clock, a synchronize at each "
+          f"phase's ends (threads: of the whole card, every thread's work; "
+          f"processes: of the party's own work), {smi}:")
+    rows = [(t, train["recs"][i]["phases"][-1],
+             steady(a["outs"][t]["phase_log"], "local train", a["iters"]),
+             TRAIN_PHASES) for i, t in enumerate(client_tasks(a["n"]))]
+    rows.append(("arbiter_0", train["arbiter"]["phases"][-1],
+                  steady(a["outs"]["arbiter_0"]["phase_log"], "collect",
+                         a["iters"]), ARBITER_PHASES))
+    for task, threads, procs, names in rows:
+        print(f"  {task}: threads {sum(threads.values()):.2f} ("
+              + ", ".join(f"{k} {threads.get(k, 0.0):.2f}" for k in names)
+              + f"); processes {sum(procs.values()):.2f} ("
+              + ", ".join(f"{k} {procs.get(k, 0.0):.2f}" for k in names)
+              + ")")
+
+
+def run_runtime_phase(dev, in_process, smi):
+    """Phase 12 (after phase 10, whose in-process run it is compared
+    with): (a) the processes, (b) predict, (c) the DSL job.  Every store
+    lies in a temporary directory that is removed after; a party process
+    still running at the end is stopped by its exact PID.  Returns the
+    mask kernel's double launches in the party processes."""
+    torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_runtime_"))
+    env = runtime_env(root)
+    try:
+        a = run_runtime_processes(root, env, in_process)
+        print(f"python -m flashe_tpu_torch submit -c examples/configs/"
+              f"{RUNTIME_CONFIG} --processes --checkpoint-dir D --publish "
+              f"phase12 --json: {a['secs']:.2f} s for {a['n'] + 1} processes "
+              f"(guest, {a['n'] - 1} hosts, arbiter) on one card over the "
+              f"TCP broker; every task success, every client on "
+              f"{a['outs']['guest_0']['device']}, 2 x {a['iters']} double "
+              f"launches at each client and none at the arbiter, the "
+              f"{a['n']} checkpoints equal bit for bit; loss_per_round "
+              f"{a['out']['loss_per_round']} against "
+              f"{in_process['submit']['loss_per_round']} in process (rtol "
+              f"{RUNTIME_LOSS_RTOL})")
+        print_runtime_profile(a, in_process, smi)
+        starts = sorted(o["startup_s"] for o in a["outs"].values())
+        peaks = [o["peak_memory_bytes"] for o in a["outs"].values()]
+        print(f"party processes' start-up (spawn to imports done and the "
+              f"broker joined; the card's context comes in the first "
+              f"iteration): {starts[0]:.2f} / "
+              f"{statistics.median(starts):.2f} / {starts[-1]:.2f} s (min / "
+              f"median / max); peak device memory allocated by torch: "
+              f"{max(peaks) / 2**30:.3f} GiB in the largest party process, "
+              f"{sum(peaks) / 2**30:.3f} GiB summed over "
+              f"{len(peaks)}, {in_process['peak_bytes'] / 2**30:.3f} GiB "
+              f"for phase 10's in-process run of the same configuration")
+        out, secs, err = run_runtime_predict(dev, env, a)
+        print(f"python -m flashe_tpu_torch predict -c examples/configs/"
+              f"{RUNTIME_CONFIG} --model phase12: {secs:.2f} s, "
+              f"aggregate_iter {out['aggregate_iter']}, {out['n']} samples "
+              f"on {out['device']}, scores within {err:.2e} of the guest's "
+              f"checkpoint loaded here (limit {PREDICT_ATOL})")
+        c = run_runtime_dsl(dev, root, env)
+        acc = [round(c["outs"][t]["evaluation_0"]["accuracy"], 4)
+               for t in client_tasks(c["n"])]
+        print(f"python -m flashe_tpu_torch submit-dsl -d examples/dsl/"
+              f"train_job_dsl.json -c (train_job_conf.json with 1 guest + "
+              f"{c['n'] - 1} hosts, the FEMNIST CNN as a Keras nn_define "
+              f"of {N_FEMNIST:,} parameters, max_iter {c['iters']}) "
+              f"--processes: {c['secs']:.2f} s; every task success, every "
+              f"client on the card with 2 x {c['iters']} double launches "
+              f"and the guest's model bit for bit; losses "
+              f"{[round(v, 6) for v in c['losses']]}; the clients' "
+              f"Evaluation accuracy {acc}")
+        return sum(o["mask_launches"]["double"]
+                   for r in (a, c) for o in r["outs"].values())
+    finally:
+        stop_jobs(root)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def mask_bound(count, card, m=INT_BITS, streams=2, sectors=None):
     """The mask kernel's bound at `count` lanes of m bits and `streams`
     mask streams: that many T-table AES-256 blocks for every 128 // m
@@ -2800,7 +3159,11 @@ def main(argv=None) -> int:
               if name != "__total__" and row["sent_bytes"] > 100_000))
 
     # federated training: the HomoNN roles through run_roles, as submit
-    train_launches = run_training_phase(dev, tf32)
+    train_launches, in_process = run_training_phase(dev, tf32)
+    # the job runtime: the same configuration one process a party, predict,
+    # a DSL job; the parent's predict runs with submit's TF32 settings
+    with submit_tf32(tf32):
+        runtime_launches = run_runtime_phase(dev, in_process, smi)
     # the general-HE baselines, at full width and in training
     he_rows = run_he_phase(dev, model, card, tf32)
 
@@ -2849,6 +3212,7 @@ def main(argv=None) -> int:
         "launches_federated": fed_launches["double"],
         "launches_per_federated_round": fed_launches["double"] // FED_ROUNDS,
         "launches_training": trained("double"),
+        "launches_processes": runtime_launches,
         "max_abs_err": max_err,
         "ms": times[N_FEMNIST][0],
         "host_calls_ms": times[N_FEMNIST][2],

@@ -1,78 +1,159 @@
-"""Package CLI (port of flashe_tpu/__main__.py's `submit`).
+"""Package CLI (port of flashe_tpu/__main__.py).
 
     python -m flashe_tpu_torch submit -c examples/configs/cnn_flashe_q16_b1_pad.json
-    python -m flashe_tpu_torch submit -c examples/configs/mlp_flashe.json --cpu --json
+    python -m flashe_tpu_torch submit -c CFG --processes --publish NS --json
+    python -m flashe_tpu_torch submit-dsl -d train_job_dsl.json -c train_job_conf.json
+    python -m flashe_tpu_torch predict -c CFG --model NS[:VERSION]
+    python -m flashe_tpu_torch keygen
 
-One JSON config selects the workload (model, scheme, clients, data).  The
-job runs in this process: the guest, the hosts and the arbiter one thread
-each over the in-memory federation (runtime/simulate.run_roles), every role
-on the card, or on the CPU with --cpu.  It prints the arbiter's mean loss
-per round and the guest's phase profile, or both as one JSON line with
---json.  The profile is the host's clock and does not synchronize the card:
-on the card a phase measures the enqueue of its work, and the device time
-lands in whichever later phase waits on it (runtime/tracking.py).
-The JAX CLI's other subcommands and options are not ported.
+One JSON config selects a workload (model, scheme, clients, data); a
+FATE-style DSL and job conf pair runs through `submit-dsl` (a Keras
+`nn_define` interpreted directly).  Without --processes a job runs in this
+process, the guest, the hosts and the arbiter one thread each over the
+in-memory federation (runtime/simulate.run_roles); with --processes each
+party is an OS process of its own over the port's TCP broker
+(runtime/job.py).  Every party runs on the card, or on the CPU with --cpu;
+every command takes --cpu, and none carries on on the CPU without it.
+`submit` prints the arbiter's mean loss per round and the guest's phase
+profile, or both as one JSON line with --json (with --processes also the
+job's id, work directory and logs).  The profile is the host's clock; in
+this process it does not synchronize the card, so a phase measures the
+enqueue of its work and the device time lands in whichever later phase
+waits on it (runtime/tracking.py); a party process synchronizes its own
+work at each phase's ends.
+
+The local stores: `jobs` / `query` / `stop` / `logs` (the job registry,
+shared with the JAX package), `upload` / `download` / `tables` (the
+dataset store, shared), `permission` (the privilege store, shared),
+`models` / `bind` (the model store, the port's own: its checkpoints are
+not the JAX package's; runtime/model_manager.py).  The job server and its
+clients (`--server`, `serve`, `board`, `tracking`, `dag`, `queue`) and the
+cluster deployment (`broker`, `storage-node`, `party`, `mesh-party`,
+`cluster`) raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
-_LATER = "is not ported yet (ROADMAP.md, queue 1, item 4: the runtime)"
+_LATER = {
+    "server": "item 4: the HTTP job server and client, with apps, board "
+              "and webboard",
+    "cluster": "item 4: cluster, broker and party",
+    "storage": "item 4: data/{table,codec,egg,kvstore,remote_kv} with "
+               "native.py",
+    "mesh": "item 5: multi-GPU",
+}
+_UNPORTED = {"serve": "server", "board": "server", "tracking": "server",
+             "dag": "server", "queue": "server", "broker": "cluster",
+             "party": "cluster", "cluster": "cluster",
+             "storage-node": "storage", "mesh-party": "mesh"}
 
 
-def cmd_submit(args) -> int:
-    for flag, name in ((args.processes, "--processes"),
-                       (args.publish, "--publish"),
-                       (args.checkpoint_dir, "--checkpoint-dir")):
-        if flag:
-            raise NotImplementedError(f"{name} {_LATER}")
-    with open(args.config) as f:
-        cfg = json.load(f)
+def _later(what: str, key: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
+                               f"queue 1, {_LATER[key]})")
 
-    from flashe_tpu_torch.data import federated_dataset
+
+def _no_server(args, command: str):
+    if getattr(args, "server", None):
+        raise _later(f"{command} --server", "server")
+
+
+def _device(args):
     from flashe_tpu_torch.device import resolve_device
-    from flashe_tpu_torch.nn.homo_nn import (
-        HomoNNArbiter, HomoNNGuest, HomoNNHost,
-    )
-    from flashe_tpu_torch.runtime.config import HomoNNParam
-    from flashe_tpu_torch.runtime.simulate import run_roles
-    from flashe_tpu_torch.runtime.tracking import tracker
 
-    device = resolve_device("cpu" if args.cpu else "cuda")
-    param = HomoNNParam.from_dict(cfg["param"])
+    return resolve_device("cpu" if args.cpu else "cuda")
+
+
+def _shards(cfg: dict, param):
+    from flashe_tpu_torch.data import federated_dataset, partition_iid
+
     n_clients = cfg.get("n_clients", 3)
     dataset = cfg.get("dataset", param.model)
     if isinstance(dataset, dict):
-        raise NotImplementedError(f"a dataset given as a table {_LATER}")
-    shards = federated_dataset(dataset, n_clients,
-                               cfg.get("samples_per_client", 128),
-                               seed=cfg.get("seed", 0))
+        # an uploaded table: {"namespace": ..., "name": ...}
+        from flashe_tpu_torch.data.store import default_store
 
-    def guest(trv):
-        c = HomoNNGuest(param, seed=0, device=device)
-        c.fit(trv, *shards[0])
-        return {"history": c.history, "phases": tracker().summary()}
+        x, y, _meta = default_store().load(dataset["namespace"],
+                                           dataset["name"])
+        return partition_iid(x, y, n_clients, seed=cfg.get("seed", 0))
+    return federated_dataset(dataset, n_clients,
+                             cfg.get("samples_per_client", 128),
+                             seed=cfg.get("seed", 0))
 
-    def host(trv, hid):
-        c = HomoNNHost(param, seed=1 + hid, device=device)
-        c.fit(trv, *shards[1 + hid])
-        return c.history
 
-    def arbiter(trv):
-        return HomoNNArbiter(param, device=device).fit(trv)
+def cmd_submit(args) -> int:
+    with open(args.config) as f:
+        cfg = json.load(f)
 
-    results = run_roles(n_clients - 1, guest, host, arbiter)
-    losses = results["arbiter"]
-    phases = results["guest"]["phases"]
+    from flashe_tpu_torch.runtime.config import HomoNNParam
+
+    device = _device(args)
+    param = HomoNNParam.from_dict(cfg["param"])
+    shards = _shards(cfg, param)
+    out = {}
+    if args.processes:
+        import tempfile
+
+        from flashe_tpu_torch.runtime.job import submit_job
+
+        ckpt_dir = args.checkpoint_dir
+        if args.publish and not ckpt_dir:
+            ckpt_dir = tempfile.mkdtemp(prefix="flashe_publish_")
+        results = submit_job(param, shards, checkpoint_dir=ckpt_dir,
+                             device=device)
+        losses = results["arbiter_0"]["loss_history"]
+        phases = results["guest_0"]["phases"]
+        job = results["__job__"]
+        if args.publish:
+            from flashe_tpu_torch.runtime.model_manager import (
+                default_model_manager,
+            )
+
+            meta = default_model_manager().publish_checkpoint(
+                args.publish, job["job_id"],
+                os.path.join(ckpt_dir, "guest_0.ckpt"),
+                param_dict=param.to_dict())
+            print(json.dumps({"published": meta}), file=sys.stderr)
+        out["guest_transfer"] = results["guest_0"]["transfer_stats"]
+        out["job"] = job
+    else:
+        if args.checkpoint_dir or args.publish:
+            raise SystemExit("--checkpoint-dir and --publish need "
+                             "--processes")
+        from flashe_tpu_torch.nn.homo_nn import (
+            HomoNNArbiter, HomoNNGuest, HomoNNHost,
+        )
+        from flashe_tpu_torch.runtime.simulate import run_roles
+        from flashe_tpu_torch.runtime.tracking import tracker
+
+        def guest(trv):
+            c = HomoNNGuest(param, seed=0, device=device)
+            c.fit(trv, *shards[0])
+            return {"history": c.history, "phases": tracker().summary()}
+
+        def host(trv, hid):
+            c = HomoNNHost(param, seed=1 + hid, device=device)
+            c.fit(trv, *shards[1 + hid])
+            return c.history
+
+        def arbiter(trv):
+            return HomoNNArbiter(param, device=device).fit(trv)
+
+        results = run_roles(len(shards) - 1, guest, host, arbiter)
+        losses = results["arbiter"]
+        phases = results["guest"]["phases"]
 
     out = {
         "loss_per_round": [round(float(v), 6) for v in losses],
         "phases": {k: {"total_s": round(v["total_s"], 4),
                        "count": v["count"]}
                    for k, v in phases.items()},
+        **out,
     }
     if args.json:
         print(json.dumps(out))
@@ -85,28 +166,366 @@ def cmd_submit(args) -> int:
     return 0
 
 
+def cmd_submit_dsl(args) -> int:
+    """FATE-style submission: -d train_job_dsl.json -c train_job_conf.json
+    (fate_flow_client.py:196-225).  Reference job confs work unchanged —
+    nn_define JSON is interpreted directly."""
+    _no_server(args, "submit-dsl")
+    with open(args.dsl) as f:
+        dsl = json.load(f)
+    with open(args.config) as f:
+        conf = json.load(f)
+    device = _device(args)
+    if args.processes:
+        from flashe_tpu_torch.runtime.job import submit_dsl_job
+
+        results = submit_dsl_job(dsl, conf, device=device)
+    else:
+        from flashe_tpu_torch.runtime.dsl import run_dsl_job
+
+        results = run_dsl_job(dsl, conf, device=device)
+
+    out = {}
+    for role_key, res in results.items():
+        if role_key == "__job__":
+            out["job"] = res
+            continue
+        if not isinstance(res, dict):
+            continue
+        role_out = {}
+        for comp, val in res.items():
+            if isinstance(val, dict) and "loss_history" in val:
+                role_out[comp] = {"loss_per_round": [
+                    round(float(v), 6) for v in val["loss_history"]]}
+            elif isinstance(val, dict) and "history" in val:
+                role_out[comp] = {"final": val["history"][-1]
+                                  if val["history"] else None}
+            elif isinstance(val, dict) and "accuracy" in val:
+                role_out[comp] = {k: (round(v, 6)
+                                      if isinstance(v, float) else v)
+                                  for k, v in val.items()}
+        if role_out:
+            out[role_key] = role_out
+    print(json.dumps(out) if args.json else json.dumps(out, indent=1))
+    return 0
+
+
+def cmd_predict(args) -> int:
+    import numpy as np
+
+    with open(args.config) as f:
+        cfg = json.load(f)
+
+    from flashe_tpu_torch.nn.homo_nn import HomoNNGuest
+    from flashe_tpu_torch.runtime.config import HomoNNParam
+
+    device = _device(args)
+    param = HomoNNParam.from_dict(cfg["param"])
+    if args.csv:
+        from flashe_tpu_torch.data.io import read_dense_csv
+
+        x, y = read_dense_csv(args.csv,
+                              label_index=None if args.unlabeled else 0)
+    elif isinstance(cfg.get("dataset"), dict):
+        from flashe_tpu_torch.data.store import default_store
+
+        x, y, _meta = default_store().load(cfg["dataset"]["namespace"],
+                                           cfg["dataset"]["name"])
+    else:
+        from flashe_tpu_torch.data import synthetic_dataset
+
+        x, y = synthetic_dataset(cfg.get("dataset", param.model),
+                                 cfg.get("samples_per_client", 128),
+                                 seed=cfg.get("seed", 0))
+
+    ckpt = args.checkpoint
+    if ckpt is None:
+        if not args.model:
+            print("predict: one of --checkpoint / --model is required",
+                  file=sys.stderr)
+            return 2
+        from flashe_tpu_torch.runtime.model_manager import (
+            default_model_manager,
+        )
+
+        mm = default_model_manager()
+        ns, _, ver = args.model.partition(":")
+        try:
+            ver = ver or mm.latest_version(ns)
+        except KeyError as e:
+            print(f"predict: {e.args[0]}", file=sys.stderr)
+            return 2
+        ckpt = mm.checkpoint_path(ns, ver)
+    client = HomoNNGuest(param, device=device)
+    client.load_model(ckpt, x[:1])
+    preds = np.asarray(client.predict(x))
+    labels = preds.argmax(axis=-1)
+    if args.out:
+        np.save(args.out, preds)
+    result = {"n": int(len(x)), "aggregate_iter": client.aggregate_iter,
+              "device": str(device)}
+    if y is not None:
+        result["accuracy"] = round(float((labels == y).mean()), 4)
+    if args.out:
+        result["out"] = args.out
+    print(json.dumps(result))
+    return 0
+
+
+def cmd_keygen(args) -> int:
+    print(os.urandom(32).hex())
+    return 0
+
+
+# -- job management (fate_flow_client -f query_job/stop_job analogues) ------
+
+
+def cmd_jobs(args) -> int:
+    _no_server(args, "jobs")
+    from flashe_tpu_torch.runtime.job_manager import default_registry
+
+    rows = default_registry().list_jobs()
+    if args.json:
+        print(json.dumps(rows))
+        return 0
+    for rec in rows:
+        print(f"{rec['job_id']}  {rec['status']:<9} "
+              f"tasks={len(rec.get('tasks', {}))}")
+    return 0
+
+
+def cmd_query(args) -> int:
+    _no_server(args, "query")
+    from flashe_tpu_torch.runtime.job_manager import default_registry
+
+    print(json.dumps(default_registry().query(args.job_id), indent=1))
+    return 0
+
+
+def cmd_stop(args) -> int:
+    _no_server(args, "stop")
+    from flashe_tpu_torch.runtime.job_manager import default_registry
+
+    rec = default_registry().stop(args.job_id)
+    print(json.dumps({"job_id": rec["job_id"], "status": rec["status"]}))
+    return 0
+
+
+def cmd_logs(args) -> int:
+    from flashe_tpu_torch.runtime.job_manager import default_registry
+
+    logs = default_registry().read_log(args.job_id, task=args.task,
+                                       tail=args.tail)
+    for task, text in logs.items():
+        print(f"===== {task} =====")
+        print(text)
+    return 0
+
+
+def cmd_permission(args) -> int:
+    """Privilege grant/revoke/query (permission_app analogue)."""
+    _no_server(args, "permission")
+    if args.action in ("grant", "revoke") and not (
+            args.variable and args.src_role and args.dst_role):
+        raise SystemExit(
+            "grant/revoke need --variable --src-role --dst-role")
+    from flashe_tpu_torch.runtime.permission import default_privilege_store
+
+    store = default_privilege_store()
+    if args.action == "query":
+        out = {"privileges": store.query(args.src_role)}
+    elif args.action == "grant":
+        out = store.grant(args.variable, args.src_role, args.dst_role)
+    else:
+        out = store.revoke(args.variable, args.src_role, args.dst_role)
+    print(json.dumps(out, indent=1))
+    return 0
+
+
+# -- model manager (fate_flow_client -f load/bind analogues) ----------------
+
+
+def cmd_models(args) -> int:
+    from flashe_tpu_torch.runtime.model_manager import default_model_manager
+
+    mm = default_model_manager()
+    rows = mm.list_versions(args.namespace)
+    bound = mm.bound_version(args.namespace)
+    if args.json:
+        print(json.dumps({"versions": rows, "bound": bound}))
+        return 0
+    for meta in rows:
+        star = "*" if meta["version"] == bound else " "
+        print(f"{star} {meta['namespace']}/{meta['version']}  "
+              f"iter={meta['aggregate_iter']}")
+    return 0
+
+
+def cmd_bind(args) -> int:
+    from flashe_tpu_torch.runtime.model_manager import default_model_manager
+
+    print(json.dumps(default_model_manager().bind(args.namespace,
+                                                  args.version)))
+    return 0
+
+
+# -- data store (fate_flow_client -f upload/download analogues) -------------
+
+
+def cmd_upload(args) -> int:
+    from flashe_tpu_torch.data.store import default_store
+
+    meta = default_store().upload_csv(
+        args.file, args.namespace, args.name,
+        label_index=None if args.unlabeled else args.label_index,
+        has_header=not args.no_header, partition=args.partition)
+    print(json.dumps(meta))
+    return 0
+
+
+def cmd_download(args) -> int:
+    from flashe_tpu_torch.data.store import default_store
+
+    meta = default_store().download_csv(args.namespace, args.name, args.out)
+    print(json.dumps({"namespace": meta["namespace"], "name": meta["name"],
+                      "count": meta["count"], "out": args.out}))
+    return 0
+
+
+def cmd_tables(args) -> int:
+    from flashe_tpu_torch.data.store import default_store
+
+    rows = default_store().list_tables()
+    if args.json:
+        print(json.dumps(rows))
+        return 0
+    for meta in rows:
+        print(f"{meta['namespace']}.{meta['name']}  n={meta['count']} "
+              f"features={meta['feature_shape']} labeled={meta['labeled']}")
+    return 0
+
+
+def cmd_unported(args) -> int:
+    raise _later(args.cmd, _UNPORTED[args.cmd])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m flashe_tpu_torch",
         description="FLASHE secure-aggregation framework, PyTorch on CUDA")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    p_submit = sub.add_parser(
-        "submit", help="run a federated training job from a JSON config")
-    p_submit.add_argument("-c", "--config", required=True,
-                          help="job config JSON (see examples/configs/)")
-    p_submit.add_argument("--cpu", action="store_true",
-                          help="run every role on the CPU")
-    p_submit.add_argument("--json", action="store_true",
-                          help="machine-readable result on stdout")
-    p_submit.add_argument("--processes", action="store_true",
-                          help="one OS process per party (not ported yet)")
-    p_submit.add_argument("--checkpoint-dir",
-                          help="save each client's final model (not ported "
-                               "yet)")
-    p_submit.add_argument("--publish",
-                          help="register the guest's final model (not "
-                               "ported yet)")
-    p_submit.set_defaults(fn=cmd_submit)
+    common = argparse.ArgumentParser(add_help=False)
+    common.add_argument("--cpu", action="store_true",
+                        help="run every party on the CPU (default: the "
+                             "card)")
+
+    def command(name, fn, help_text):
+        p = sub.add_parser(name, help=help_text, parents=[common])
+        p.set_defaults(fn=fn)
+        return p
+
+    p = command("submit", cmd_submit,
+                "run a federated training job from a JSON config")
+    p.add_argument("-c", "--config", required=True,
+                   help="job config JSON (see examples/configs/)")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable result on stdout")
+    p.add_argument("--processes", action="store_true",
+                   help="one OS process per party over the TCP federation "
+                        "broker")
+    p.add_argument("--checkpoint-dir",
+                   help="with --processes: each client saves its final "
+                        "model there (<role>_<id>.ckpt)")
+    p.add_argument("--publish",
+                   help="with --processes: register the guest's final model "
+                        "in the model store under this namespace (version "
+                        "= job id)")
+
+    p = command("submit-dsl", cmd_submit_dsl,
+                "run a FATE-style DSL job (-d dsl.json -c conf.json)")
+    p.add_argument("-d", "--dsl", required=True,
+                   help="component-DAG DSL JSON (train_job_dsl.json)")
+    p.add_argument("-c", "--config", required=True,
+                   help="job conf JSON (train_job_conf.json)")
+    p.add_argument("--processes", action="store_true",
+                   help="one OS process per party over the TCP federation "
+                        "broker")
+    p.add_argument("--json", action="store_true")
+    p.add_argument("--server", help="a running job server (not ported)")
+
+    p = command("predict", cmd_predict,
+                "run predictions with a checkpointed model")
+    p.add_argument("-c", "--config", required=True)
+    p.add_argument("--checkpoint",
+                   help="checkpoint written by submit --checkpoint-dir or "
+                        "save_checkpoint")
+    p.add_argument("--model",
+                   help="stored model 'namespace[:version]' (default "
+                        "version: the bound / newest one)")
+    p.add_argument("--csv", help="dense CSV to predict on (default: the "
+                                 "config's dataset)")
+    p.add_argument("--unlabeled", action="store_true",
+                   help="the CSV has no label column")
+    p.add_argument("--out", help="write raw prediction scores (.npy)")
+
+    command("keygen", cmd_keygen, "generate a fresh 256-bit PRP seed (hex)")
+
+    p = command("jobs", cmd_jobs, "list submitted jobs")
+    p.add_argument("--json", action="store_true")
+    p.add_argument("--server", help="a job server (not ported)")
+    for name, fn, help_text in (("query", cmd_query, "query a job's status"),
+                                ("stop", cmd_stop, "stop a running job")):
+        p = command(name, fn, help_text)
+        p.add_argument("-j", "--job-id", required=True)
+        p.add_argument("--server", help="a job server (not ported)")
+
+    p = command("logs", cmd_logs, "print a job's task logs")
+    p.add_argument("-j", "--job-id", required=True)
+    p.add_argument("--task", help="one task, e.g. guest_0")
+    p.add_argument("--tail", type=int, default=0,
+                   help="only the last N lines")
+
+    p = command("permission", cmd_permission,
+                "grant/revoke/query transfer privileges")
+    p.add_argument("action", choices=["grant", "revoke", "query"])
+    p.add_argument("--variable")
+    p.add_argument("--src-role")
+    p.add_argument("--dst-role")
+    p.add_argument("--server", help="a job server (not ported)")
+
+    p = command("upload", cmd_upload,
+                "ingest a dense CSV into the dataset store")
+    p.add_argument("-f", "--file", required=True)
+    p.add_argument("-n", "--namespace", required=True)
+    p.add_argument("-t", "--name", required=True)
+    p.add_argument("--label-index", type=int, default=0)
+    p.add_argument("--unlabeled", action="store_true")
+    p.add_argument("--no-header", action="store_true")
+    p.add_argument("--partition", type=int, default=1)
+
+    p = command("download", cmd_download,
+                "export a stored table back to CSV")
+    p.add_argument("-n", "--namespace", required=True)
+    p.add_argument("-t", "--name", required=True)
+    p.add_argument("-o", "--out", required=True)
+
+    p = command("tables", cmd_tables, "list stored tables")
+    p.add_argument("--json", action="store_true")
+
+    p = command("models", cmd_models, "list stored model versions")
+    p.add_argument("-n", "--namespace", required=True)
+    p.add_argument("--json", action="store_true")
+
+    p = command("bind", cmd_bind,
+                "mark a model version as the serving default")
+    p.add_argument("-n", "--namespace", required=True)
+    p.add_argument("-v", "--version", required=True)
+
+    for name, key in _UNPORTED.items():
+        p = command(name, cmd_unported,
+                    f"not ported yet ({_LATER[key]})")
+        p.add_argument("rest", nargs=argparse.REMAINDER)
+
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -12,7 +12,8 @@ Mirrors federatedml/nn/jzf_homo_nn/enter_point.py:
 
 Every role runs on `device` (the card unless the caller asks for the
 CPU): the client's model, optimizer state, codec and cipher block, the
-arbiter's block.
+arbiter's block.  A client's local training is a phase of its own ("local
+train", runtime/tracking.py) beside the aggregator's.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from flashe_tpu_torch.nn.trainer import LocalTrainer
 from flashe_tpu_torch.nn.weights import WeightsCodec
 from flashe_tpu_torch.protocol import aggregator
 from flashe_tpu_torch.runtime.config import HomoNNParam
-from flashe_tpu_torch.runtime.tracking import tracker
+from flashe_tpu_torch.runtime.tracking import phase, tracker
 
 __all__ = ["HomoNNClient", "HomoNNGuest", "HomoNNHost", "HomoNNArbiter"]
 
@@ -70,9 +71,10 @@ class HomoNNClient:
         degree = float(len(x))
         flat_before = self.codec.flatten(self.trainer.params)
         for it in range(start_iter, p.max_iter):
-            train_loss = self.trainer.train(
-                x, y, epochs=p.aggregate_every_n_epoch,
-                batch_size=min(p.batch_size, len(x)))
+            with phase("local train"):
+                train_loss = self.trainer.train(
+                    x, y, epochs=p.aggregate_every_n_epoch,
+                    batch_size=min(p.batch_size, len(x)))
             flat = self.codec.flatten(self.trainer.params)
             agg_flat = agg.aggregate_then_get(
                 flat, iter_index=it, before=flat_before, degree=degree,

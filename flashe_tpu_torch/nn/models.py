@@ -63,15 +63,25 @@ def _named(tree, prefix=""):
     return out
 
 
-def _same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+def _pair(v) -> tuple:
+    if isinstance(v, (list, tuple)):
+        return tuple(int(i) for i in v)
+    return (int(v), int(v))
+
+
+def _same_pad(x: torch.Tensor, kernel, stride, value: float = 0.0
+              ) -> torch.Tensor:
     """Pad an NCHW tensor as lax's SAME padding does: out = ceil(in /
-    stride), the total padding split with the odd pixel at the end."""
+    stride), the total padding split with the odd pixel at the end.
+    kernel and stride are ints or (height, width) pairs; `value` fills the
+    padding (-inf for a max pool)."""
     pads = []
-    for size in (x.shape[3], x.shape[2]):
-        out = -(-size // stride)
-        total = max((out - 1) * stride + kernel - size, 0)
+    for size, k, s in zip((x.shape[3], x.shape[2]), _pair(kernel)[::-1],
+                          _pair(stride)[::-1]):
+        out = -(-size // s)
+        total = max((out - 1) * s + k - size, 0)
         pads += [total // 2, total - total // 2]
-    return F.pad(x, pads) if any(pads) else x
+    return F.pad(x, pads, value=value) if any(pads) else x
 
 
 class _FlaxModel(nn.Module):
@@ -97,6 +107,16 @@ class _FlaxModel(nn.Module):
         keep = torch.rand(x.shape, generator=self.generator,
                           device=x.device) < 1.0 - rate
         return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+    def shapes_open(self) -> bool:
+        """True while a parameter's shape waits for the first input."""
+        return any(isinstance(p, nn.parameter.UninitializedParameter)
+                   for p in self.parameters())
+
+    def recurrent_kernels(self) -> set:
+        """The flax names that flax's recurrent cells draw orthogonal."""
+        return {k for k in self._flax if k.startswith("OptimizedLSTMCell")
+                and "/h" in k and k.endswith("/kernel")}
 
     def _slot(self, tensors, name):
         pname, perm, cols = self._flax[name]
@@ -360,17 +380,20 @@ _REGISTRY: Dict[str, Callable[..., _FlaxModel]] = {
 
 def build_model(name: str, device="cuda", **kwargs: Any) -> _FlaxModel:
     if name in ("keras", "nn_define"):
-        raise NotImplementedError(
-            "the Keras nn_define interpreter is not ported yet (ROADMAP.md, "
-            "queue 1, item 4)")
+        # a Keras-JSON nn_define from a reference-style job conf
+        # (federatedml/nn/backend/tf_keras/jzf_nn_model.py:99-109)
+        from flashe_tpu_torch.nn.keras_define import KerasDefineModel
+
+        return KerasDefineModel(kwargs["nn_define"], device=device)
     if name not in _REGISTRY:
         raise ValueError(f"unknown model {name}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name](device=device, **kwargs)
 
 
-def _flax_init(name: str, shape, gen: torch.Generator) -> torch.Tensor:
+def _flax_init(name: str, shape, gen: torch.Generator,
+               orthogonal: bool = False) -> torch.Tensor:
     """One draw of the flax initializer of parameter `name` (flax layout),
-    on the CPU from `gen`."""
+    on the CPU from `gen`; `orthogonal` for a recurrent kernel."""
     leaf = name.rsplit("/", 1)[-1]
     if leaf == "bias":
         return torch.zeros(shape)
@@ -379,8 +402,7 @@ def _flax_init(name: str, shape, gen: torch.Generator) -> torch.Tensor:
     if leaf == "embedding":
         # variance_scaling(1, fan_in, normal, out_axis=0): std 1/sqrt(features)
         return torch.randn(shape, generator=gen) / math.sqrt(shape[-1])
-    if "/h" in name and name.startswith("OptimizedLSTMCell"):
-        # the recurrent kernels: orthogonal()
+    if orthogonal:  # flax's recurrent cells: orthogonal()
         q, r = torch.linalg.qr(torch.randn(shape, generator=gen))
         return q * torch.sign(torch.diagonal(r))
     # lecun_normal: truncated normal on [-2, 2] std, variance 1 / fan_in
@@ -397,10 +419,9 @@ def init_params(model: _FlaxModel, input_example=None, seed: int = 0) -> dict:
     """Draw every parameter from its flax initializer's distribution, in
     sorted flax-name order from a CPU torch.Generator seeded `seed`, and
     load them into `model`: the same model on every device for one seed.
-    A model whose input width is still open (MLP) first sees
-    `input_example`.  Returns model.params_to_flax()."""
-    if any(isinstance(p, nn.parameter.UninitializedParameter)
-           for p in model.parameters()):
+    A model whose input width is still open (MLP, a Keras nn_define) first
+    sees `input_example`.  Returns model.params_to_flax()."""
+    if model.shapes_open():
         if input_example is None:
             raise ValueError(f"{type(model).__name__} needs an input example "
                              "to fix its input width")
@@ -410,6 +431,7 @@ def init_params(model: _FlaxModel, input_example=None, seed: int = 0) -> dict:
         model.train(training)
     gen = torch.Generator().manual_seed(seed)
     shapes = {k: tuple(v.shape) for k, v in model.params_to_flax().items()}
-    model.params_from_flax({k: _flax_init(k, shapes[k], gen)
+    recurrent = model.recurrent_kernels()
+    model.params_from_flax({k: _flax_init(k, shapes[k], gen, k in recurrent)
                             for k in sorted(shapes)})
     return model.params_to_flax()

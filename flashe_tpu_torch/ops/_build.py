@@ -4,16 +4,21 @@ Each kernel is one `.cu` file under flashe_tpu_torch/csrc/ with a plain C
 entry point.  At first use it is compiled with nvcc for sm_90a into a shared
 library under build/flashe_tpu_torch/ at the repository root and loaded with
 ctypes.  The library's file name carries a hash of the source and the flags,
-so an edited source is rebuilt.  The compiler's messages, ptxas's registers and spills of
-every kernel among them, are kept beside the library (`build_log`);
-`sass_opcodes` counts the instructions of what was built, where the toolkit's
-cuobjdump is at hand.  Nothing here runs at import time.
+so an edited source is rebuilt.  A build holds an exclusive `flock` on
+build/flashe_tpu_torch/<name>.lock, so that of the processes that ask for
+a missing library at once (a job's party processes) one builds it and the
+rest wait and load it; the lock is released when its holder exits,
+however it exits.  The compiler's messages, ptxas's registers and spills
+of every kernel among them, are kept beside the library (`build_log`);
+`sass_opcodes` counts the instructions of what was built, where the
+toolkit's cuobjdump is at hand.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -80,15 +85,19 @@ _load_locks = collections.defaultdict(threading.Lock)
 def _load(name: str) -> ctypes.CDLL:
     lib = _lib_path(name)
     if not lib.exists():
-        log = compile_so(_SRC / f"{name}.cu", lib)
-        lib.with_suffix(".log").write_text(log)
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        with open(lib.parent / f"{name}.lock", "a") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+            if not lib.exists():  # another process may have built it
+                log = compile_so(_SRC / f"{name}.cu", lib)
+                lib.with_suffix(".log").write_text(log)
     return ctypes.CDLL(str(lib))
 
 
 def load(name: str) -> ctypes.CDLL:
     """Compile csrc/<name>.cu if its library is missing or stale; load it.
-    Threads that ask for one source at once build it once; two sources
-    build side by side."""
+    Threads and processes that ask for one source at once build it once;
+    two sources build side by side."""
     with _load_locks[name]:
         return _load(name)
 

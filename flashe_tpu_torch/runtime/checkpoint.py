@@ -10,7 +10,9 @@ quantizes identically to an uninterrupted one.
 The port's own format, not flax serialization: a pickle of numpy arrays,
 the parameters keyed by flax path name in the flax layout, the optimizer's
 state_dict with its tensors as numpy.  A file written on the card loads on
-the CPU and back.  It does not read a JAX package checkpoint.  Load only
+the CPU and back.  It does not read a JAX package checkpoint, whose
+parameters are one flax-serialized byte string: `read_blob` names such a
+file as what it is rather than failing later inside a load.  Load only
 files this program wrote: unpickling runs code.
 """
 
@@ -23,7 +25,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["save_checkpoint", "load_checkpoint"]
+__all__ = ["save_checkpoint", "load_checkpoint", "read_blob"]
 
 
 def _to_numpy(obj):
@@ -66,12 +68,26 @@ def save_checkpoint(path: str, params, aggregate_iter: int,
     os.replace(tmp, path)
 
 
+def read_blob(path: str) -> dict:
+    """The unpickled checkpoint file, checked to be the port's format."""
+    with open(path, "rb") as f:
+        blob = pickle.load(f)
+    if not isinstance(blob, dict) or "aggregate_iter" not in blob:
+        raise ValueError(f"{path} is not a flashe checkpoint")
+    if not isinstance(blob.get("params"), dict):
+        raise ValueError(
+            f"{path} is a JAX package (flashe_tpu) checkpoint: its "
+            "parameters are flax-serialized bytes, which flashe_tpu_torch "
+            "does not read; it loads only checkpoints that flashe_tpu_torch "
+            "wrote")
+    return blob
+
+
 def load_checkpoint(path: str) -> dict:
     """-> {"params": {name: np.ndarray}, "aggregate_iter", "opt_state" (a
     state_dict with torch tensors, for Optimizer.load_state_dict, or None),
     "quantizer_stats": {name: np.ndarray}}."""
-    with open(path, "rb") as f:
-        blob = pickle.load(f)
+    blob = read_blob(path)
     return {
         "params": blob["params"],
         "aggregate_iter": blob["aggregate_iter"],

@@ -6,9 +6,9 @@ process per role over standalone eggroll) with one thread per role over the
 in-memory broker.  Exceptions propagate to the caller with the failing
 role attached; `timeout` bounds the whole run.
 
-Authorization is the static matrix of HomoTransferVariables.authorization();
-the JAX package's privilege-store overrides (runtime/permission.py) are not
-ported.
+Every role's federation enforces runtime/permission.effective_authorization():
+the static matrix of HomoTransferVariables.authorization() unless the
+privilege store holds grants or revocations.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from typing import Callable, Dict
 from flashe_tpu_torch.fed.inmem import InMemBroker, InMemFederation
 from flashe_tpu_torch.fed.transport import default_parties
 from flashe_tpu_torch.fed.variables import HomoTransferVariables
+from flashe_tpu_torch.runtime.permission import effective_authorization
 from flashe_tpu_torch.runtime.tracking import Tracker, set_tracker
 
 __all__ = ["run_roles"]
@@ -38,7 +39,7 @@ def run_roles(n_hosts: int, guest_fn: Callable, host_fn: Callable,
     """
     broker = InMemBroker()
     parties = default_parties(n_hosts)
-    auth = HomoTransferVariables.authorization()
+    auth = effective_authorization()
 
     results: Dict[str, object] = {}
     errors: Dict[str, BaseException] = {}

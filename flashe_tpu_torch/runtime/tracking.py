@@ -15,7 +15,8 @@ synchronize it measures the enqueue, and the device time lands in whichever
 later phase waits on it.  A Tracker made with `synchronize` (for example
 torch.cuda.synchronize) calls it when each phase begins and ends, so that
 a phase holds its own device work; it waits for the whole device, the other
-threads' work included.
+threads' work included.  `phase_log` keeps every phase in the order it
+ended, so that a run's phases can be read an iteration at a time.
 """
 
 from __future__ import annotations
@@ -41,11 +42,13 @@ class Tracker:
         self.synchronize = synchronize
         self.phase_totals = defaultdict(float)
         self.phase_counts = defaultdict(int)
+        self.phase_log = []  # list of (name, seconds)
         self.metrics = []  # list of (name, step, value)
 
     def record_phase(self, name: str, seconds: float):
         self.phase_totals[name] += seconds
         self.phase_counts[name] += 1
+        self.phase_log.append((name, seconds))
 
     def callback_metric(self, metric_name: str, step, value):
         self.metrics.append((metric_name, step, value))

@@ -222,8 +222,14 @@ def test_build_model_registry_and_keras():
     m = pmodels.build_model("mlp", device="cpu", features=(16, 4))
     pmodels.init_params(m, np.zeros((1, 7), np.float32))
     assert m.params_to_flax()["Dense_0/kernel"].shape == (7, 16)
-    for name in ("keras", "nn_define"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    define = {"class_name": "Sequential", "config": {"layers": [
+        {"class_name": "Dense", "config": {"name": "d", "units": 3}}]}}
+    for name in ("keras", "nn_define"):  # the Keras interpreter
+        m = pmodels.build_model(name, device="cpu", nn_define=define)
+        pmodels.init_params(m, np.zeros((1, 5), np.float32))
+        assert {k: tuple(v.shape) for k, v in m.params_to_flax().items()} \
+            == {"d/kernel": (5, 3), "d/bias": (3,)}
+        with pytest.raises(ValueError, match="nn_define class"):
             pmodels.build_model(name, device="cpu", nn_define="{}")
     with pytest.raises(ValueError, match="unknown model"):
         pmodels.build_model("vgg", device="cpu")

@@ -1,14 +1,18 @@
 """PyTorch port: the rules every module of flashe_tpu_torch keeps.
 
 - It imports nothing of the JAX package and no jax, and neither does
-  chip_smoke.py, which runs on a machine without them.
+  chip_smoke.py, which runs on a machine without them, nor the task
+  executor process that the job runner spawns, whose command names the
+  port's executor.
 - Its ACIQ and its job configuration are copies of the JAX package's,
   value for value.
 - Its entry points run on the card unless the caller asks for the CPU: the
   ciphers (FLASHE, Paillier, BFV, CKKS, the random pads) and the RNS
   context, the codec and models, the quantizer, the session blocks, the
   federated round's roles (`with_role`, the role classes), the roles that
-  run_roles runs, the trainer and the HomoNN roles.
+  run_roles runs, the trainer and the HomoNN roles, the Keras nn_define
+  interpreter, the DSL job in process and across processes, the job runner
+  and a task config with no "device".
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from flashe_tpu_torch.crypto.paillier import PaillierCipher, PaillierKeypair
 from flashe_tpu_torch.crypto.random_pads import PadsCipher, RandomPads
 from flashe_tpu_torch.nn import homo_nn
 from flashe_tpu_torch.nn import models as pmodels
+from flashe_tpu_torch.nn.keras_define import KerasDefineModel
 from flashe_tpu_torch.nn.models import FemnistCNN
 from flashe_tpu_torch.nn.trainer import LocalTrainer
 from flashe_tpu_torch.nn.weights import WeightsCodec
@@ -47,8 +52,11 @@ from flashe_tpu_torch.protocol.blocks import paillier as pblocks
 from flashe_tpu_torch.protocol.blocks import plain as plblocks
 from flashe_tpu_torch.protocol.blocks.flashe import choose_masking
 from flashe_tpu_torch.runtime import config as pconfig
+from flashe_tpu_torch.runtime import job as pjob
 from flashe_tpu_torch.runtime.config import HomoNNParam
+from flashe_tpu_torch.runtime.dsl import run_dsl_job
 from flashe_tpu_torch.runtime.simulate import run_roles
+from flashe_tpu_torch.runtime.task_executor import run_task
 from flashe_tpu_torch.quant import aciq as paciq
 from flashe_tpu_torch.quant import quantizer as pquant
 
@@ -86,9 +94,50 @@ def test_port_and_chip_smoke_import_no_jax_package():
                  "nn.homo_nn", "runtime.checkpoint", "__main__", "ops.ntt",
                  "crypto.bfv", "crypto.ckks", "crypto.random_pads",
                  "protocol.blocks.bfv", "protocol.blocks.ckks",
-                 "protocol.blocks.additive"):
+                 "protocol.blocks.additive", "runtime.job_manager",
+                 "runtime.permission", "runtime.model_manager", "data.io",
+                 "data.store", "nn.evaluation", "nn.cross_validation",
+                 "nn.keras_define", "runtime.dsl", "runtime.task_executor",
+                 "runtime.job"):
         assert f"flashe_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
+
+
+def test_job_runner_spawns_the_ports_executor(tmp_path, monkeypatch):
+    """The runner's child command names the port's task executor, from the
+    repository root, and that command loads neither jax nor flashe_tpu."""
+    assert pjob.EXECUTOR == "flashe_tpu_torch.runtime.task_executor"
+    spawned = []
+
+    class Spawned(Exception):
+        pass
+
+    def popen(argv, **kw):
+        spawned.append((argv, kw["cwd"]))
+        raise Spawned
+
+    with monkeypatch.context() as m, pytest.raises(Spawned):
+        m.setattr(pjob.subprocess, "Popen", popen)
+        pjob.submit_job(HomoNNParam(secure_aggregate="plain"),
+                        [(np.zeros((2, 3), np.float32), np.zeros(2))] * 2,
+                        registry=pjob.JobRegistry(str(tmp_path)),
+                        device="cpu")
+    (argv, cwd), = spawned
+    assert argv[:4] == [sys.executable, "-m", pjob.EXECUTOR, "-c"]
+    assert cwd == REPO
+    assert not any("flashe_tpu." in a or a == "flashe_tpu" for a in argv)
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-X", "importtime"] + argv[1:3]
+                         + ["--help"], cwd=cwd, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    loaded = [line.rsplit("|", 1)[-1].strip()
+              for line in res.stderr.splitlines()
+              if line.startswith("import time:")]
+    assert "flashe_tpu_torch.nn.homo_nn" in loaded  # what the executor runs
+    assert not [m for m in loaded if m.split(".")[0] in ("jax",
+                                                         "flashe_tpu")]
 
 
 def test_quantizer_uses_the_ports_aciq():
@@ -157,6 +206,11 @@ def _constructors():
     n = keypair[0].n
     template = {"w": torch.zeros(3, 2)}
     plain = HomoNNParam(secure_aggregate="plain")
+    shards = [(np.zeros((2, 3), np.float32), np.zeros(2))] * 2
+    dsl = {"components": {"dataio_0": {
+        "module": "DataIO", "input": {"data": {"data": ["args.train_data"]}},
+        "output": {"data": ["train"]}}}}
+    conf = {"role": {"guest": [1], "host": [2], "arbiter": [3]}}
     return {
         "FlasheCipher": lambda: FlasheCipher(20),
         "PaillierCipher": lambda: PaillierCipher(),
@@ -208,6 +262,12 @@ def _constructors():
         "HomoNNGuest": lambda: homo_nn.HomoNNGuest(plain),
         "HomoNNHost": lambda: homo_nn.HomoNNHost(plain),
         "HomoNNArbiter": lambda: homo_nn.HomoNNArbiter(plain),
+        "KerasDefineModel": lambda: KerasDefineModel(
+            {"class_name": "Sequential", "config": {"layers": []}}),
+        "submit_job": lambda: pjob.submit_job(plain, shards),
+        "submit_dsl_job": lambda: pjob.submit_dsl_job(dsl, conf),
+        "run_dsl_job": lambda: run_dsl_job(dsl, conf),
+        "run_task": lambda: run_task({"role": "guest", "party_id": 0}),
     }
 
 
@@ -222,7 +282,8 @@ def _constructors():
     "aggregator.Arbiter", "aggregator.Guest", "aggregator.Host",
     "with_role", "run_roles", "MLP", "CifarResNet", "CharLSTM",
     "build_model", "LocalTrainer", "HomoNNGuest", "HomoNNHost",
-    "HomoNNArbiter"])
+    "HomoNNArbiter", "KerasDefineModel", "submit_job", "submit_dsl_job",
+    "run_dsl_job", "run_task"])
 def test_entry_points_default_to_the_card(name):
     """Called with no device, each entry point asks for the card: on a host
     without one it raises and never carries on on the CPU."""

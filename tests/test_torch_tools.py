@@ -172,3 +172,48 @@ def test_count_sass():
 def test_layout_refuses_limb_counts_before_building(L):
     with pytest.raises(ValueError):
         montgomery.layout(L)
+
+
+_STUB_BUILD = r"""
+import sys, time
+from pathlib import Path
+from flashe_tpu_torch.ops import _build
+
+root = Path(sys.argv[1])
+_build.build_dir = lambda: root
+
+
+def stub_compile(src, lib, extra_flags=()):
+    with open(root / "compiles", "a") as f:
+        f.write(f"{src.name}\n")
+    time.sleep(1.0)  # long enough for the other process to ask meanwhile
+    lib.write_bytes(b"built")
+    return "log"
+
+
+_build.compile_so = stub_compile
+_build.ctypes.CDLL = lambda path: path
+print(_build.load("flashe_mask"))
+"""
+
+
+def test_build_is_one_compile_across_processes(tmp_path):
+    """Two processes asking at once for a missing library: one compiles
+    (a stub here: no nvcc on the CPU) under the build directory's flock,
+    the other waits and loads the same file."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen([sys.executable, "-c", _STUB_BUILD,
+                               str(tmp_path)], cwd=repo,
+                              stdout=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    outs = [p.communicate(timeout=120)[0].strip() for p in procs]
+    assert [p.returncode for p in procs] == [0, 0]
+    assert (tmp_path / "compiles").read_text() == "flashe_mask.cu\n"
+    assert outs[0] == outs[1] and outs[0].endswith(".so")
+    lib = tmp_path / os.path.basename(outs[0])
+    assert lib.read_bytes() == b"built"
+    assert lib.with_suffix(".log").read_text() == "log"
