@@ -158,6 +158,26 @@ Phases, each of which fails the run:
      losses, every client's Evaluation.  The party processes write what
      is checked (device, launches, a digest of the final model, phases)
      into their outputs (runtime/task_executor.py).
+ 13. the job server and the cluster deployment (run after phase 12, over
+     its stores and DataIO tables): (a) `python -m flashe_tpu_torch serve
+     --port 0` a process of its own, FLASHE_MAX_CONCURRENT_JOB_RUN=1;
+     (b) phase 12 (c)'s DSL job submitted through FlasheClient (11 party
+     processes on the card): phase 12's job checks, losses within 1e-6
+     relative of phase 12 (c)'s, and the server's views of it (tracking's
+     data_view and metric/all, the DAG, the logs, the HTML /board page and
+     `board -j --server` name every task; metric_data holds the arbiter's
+     losses, component/parameters each client's nn_define, job/config the
+     submitted DSL and conf); each party's steady iteration printed beside
+     phase 12 (c)'s; (c) the queue: a 3-party version (guest, one host,
+     arbiter; max_iter 1) runs while a second waits (`queue --server`),
+     the second is stopped (`stop --server`) and never starts, a third is
+     queued and the server interrupted: the third ends canceled, never
+     started, and the first success; (d) `cluster -c CONF.json
+     --run-local`, a JSON conf of cnn_flashe_q16_b1_pad.json with
+     n_clients 2 (broker, guest, host, arbiter, a process each on the
+     card): every return code 0, 2 double launches a client an iteration,
+     none at the arbiter, one model digest, losses within 1e-3 relative of
+     the in-process submit of the same config.
 It prints ptxas's registers and spills of every kernel instance after the
 build and, where the toolkit has cuobjdump, the mask kernel's instruction
 counts; the kernels' JSON line and the card's name and power limit, then as
@@ -188,12 +208,14 @@ import os
 import pickle
 import random
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -230,6 +252,7 @@ from flashe_tpu_torch.protocol.sparsify import Sparsifier, decode_locations
 from flashe_tpu_torch.quant.quantizer import QuantizingClient
 from flashe_tpu_torch.runtime.checkpoint import load_checkpoint
 from flashe_tpu_torch.runtime.config import HomoNNParam
+from flashe_tpu_torch.runtime.client import FlasheClient
 from flashe_tpu_torch.runtime.job_manager import JobRegistry
 from flashe_tpu_torch.runtime.simulate import run_roles
 from flashe_tpu_torch.runtime.tracking import (
@@ -291,6 +314,8 @@ ARBITER_PHASES = ("collect", "aggregate", "dispatch")
 RUNTIME_CONFIG = TRAIN_CONFIGS[0][0]
 RUNTIME_LOSS_RTOL, PREDICT_ATOL = 1e-3, 1e-5
 RUNTIME_TIMEOUT_S = 420
+# phase 13: the job server's run of phase 12 (c)'s job against that run
+SERVER_LOSS_RTOL = 1e-6
 FEMNIST_DEFINE = {"class_name": "Sequential", "config": {
     "name": "sequential", "layers": [
         {"class_name": "Reshape",
@@ -2582,11 +2607,10 @@ def runtime_env(root: Path) -> dict:
     return env
 
 
-def run_cli(argv, env):
+def run_cli_text(argv, env):
     """`python -m flashe_tpu_torch <argv>`, a process of its own from the
-    repository root, on the card; returns its last line of output as JSON
-    and its seconds.  A command that fails fails the phase, with the end
-    of its errors."""
+    repository root, on the card; returns its output and its seconds.  A
+    command that fails fails the phase, with the end of its errors."""
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", "flashe_tpu_torch", *argv],
                          cwd=ROOT, env=env, capture_output=True, text=True,
@@ -2595,7 +2619,14 @@ def run_cli(argv, env):
     if res.returncode != 0:
         raise AssertionError(f"python -m flashe_tpu_torch {' '.join(argv)}:"
                              f" rc {res.returncode}\n{res.stderr[-6000:]}")
-    return json.loads(res.stdout.strip().splitlines()[-1]), secs
+    return res.stdout, secs
+
+
+def run_cli(argv, env):
+    """run_cli_text's command; its last line of output as JSON, and its
+    seconds."""
+    out, secs = run_cli_text(argv, env)
+    return json.loads(out.strip().splitlines()[-1]), secs
 
 
 def stop_jobs(root: Path):
@@ -2768,6 +2799,305 @@ def run_runtime_dsl(dev, root, env):
                 losses=losses, conf=conf)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the job server and the cluster deployment
+# ---------------------------------------------------------------------------
+
+def start_server(root: Path, env):
+    """`python -m flashe_tpu_torch serve --port 0`, a process on the card
+    with FLASHE_MAX_CONCURRENT_JOB_RUN=1; returns it, the URL it printed
+    and its seconds to that line (its output goes to root/serve.log)."""
+    log = open(root / "serve.log", "w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "flashe_tpu_torch", "serve", "--port", "0"],
+        cwd=ROOT, env=dict(env, FLASHE_MAX_CONCURRENT_JOB_RUN="1"),
+        stdout=log, stderr=subprocess.STDOUT, text=True)
+    deadline = time.time() + 120
+    while True:
+        log.seek(0)
+        line = log.readline()
+        if "http://" in line:
+            return proc, line.split("http://")[1].split()[0], \
+                time.perf_counter() - t0
+        if proc.poll() is not None or time.time() > deadline:
+            log.seek(0)
+            raise AssertionError(f"serve: rc {proc.poll()}, no address "
+                                 f"printed:\n{log.read()[-4000:]}")
+        time.sleep(0.2)
+
+
+def stop_server(proc, timeout):
+    """SIGINT the server (it cancels its waiting jobs, lets the running one
+    end and exits 0); killed if it is still there after `timeout`."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+    try:
+        return proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def dsl_conf(conf, n, iters):
+    """A copy of phase 12 (c)'s job conf cut to the guest and n - 1 hosts,
+    max_iter iters."""
+    conf = json.loads(json.dumps(conf))
+    conf["role"]["host"] = conf["role"]["host"][:n - 1]
+    rp = conf["role_parameters"]["host"]
+    rp["args"]["data"]["train_data"] = rp["args"]["data"]["train_data"][
+        :n - 1]
+    rp["dataio_0"] = {k: v[:n - 1] for k, v in rp["dataio_0"].items()}
+    conf["algorithm_parameters"]["homo_nn_0"]["max_iter"] = iters
+    return conf
+
+
+def tasks_of(n):
+    return set(client_tasks(n)) | {"arbiter_0"}
+
+
+def run_server_job(client, root, env, url, dsl, c):
+    """(b) phase 12 (c)'s job submitted over HTTP: the job's checks, its
+    losses within SERVER_LOSS_RTOL of phase 12 (c)'s, and the server's
+    views of it: tracking's data_view and metric/all, the DAG, the logs,
+    the HTML board and `board --server` name every task; metric_data holds
+    the arbiter's losses, component/parameters every client's nn_define,
+    job/config the submitted DSL and conf."""
+    n, iters = c["n"], c["iters"]
+    t0 = time.perf_counter()
+    job_id = client.submit_job(dsl, c["conf"],
+                               timeout=RUNTIME_TIMEOUT_S)["job_id"]
+    rec = client.wait_job(job_id, timeout=RUNTIME_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    if rec["status"] != "success":
+        raise AssertionError(f"serve: job {job_id} ended {rec['status']}: "
+                             f"{rec.get('error')}")
+    rec, outs = read_job(root, rec)
+    check_job("serve", rec, outs, n, iters)
+    losses = outs["arbiter_0"]["homo_nn_0"]["loss_history"]
+    if not np.allclose(losses, c["losses"], rtol=SERVER_LOSS_RTOL, atol=0):
+        raise AssertionError(f"serve: losses {losses}, phase 12 (c) "
+                             f"{c['losses']} (rtol {SERVER_LOSS_RTOL})")
+    tasks = tasks_of(n)
+    result = client.job_result(job_id)["result"]
+    summary = result["arbiter_0"]["homo_nn_0"]["loss_history"]
+    view = client._call("POST", "/v1/tracking/job/data_view",
+                        {"job_id": job_id})
+    metrics = client._call("POST", "/v1/tracking/component/metric/all",
+                           {"job_id": job_id})
+    loss = client._call("POST", "/v1/tracking/component/metric_data",
+                        {"job_id": job_id, "component_name": "homo_nn_0",
+                         "role": "arbiter", "metric_name": "loss"})
+    params = [client._call("POST", "/v1/tracking/component/parameters",
+                           {"job_id": job_id, "component_name": "homo_nn_0",
+                            "role": role, "ordinal": k})
+              for role, k in [("guest", 0)] + [("host", h)
+                                                for h in range(n - 1)]]
+    dag = client._call("POST", "/v1/pipeline/dag/dependency",
+                       {"job_id": job_id})
+    logs = client.job_log(job_id)
+    config = client.job_config(job_id)
+    page = urllib.request.urlopen(f"http://{url}/board/{job_id}",
+                                  timeout=30).read().decode()
+    text, board_s = run_cli_text(["board", "-j", job_id, "--server",
+                                  f"http://{url}"], env)
+    faults = []
+    if summary != [float(v) for v in losses]:
+        faults.append(f"job/result losses {summary}")
+    if view.get("tasks") != dict.fromkeys(tasks, "success"):
+        faults.append(f"data_view tasks {view.get('tasks')}")
+    if set(metrics) != tasks or not all(metrics.values()):
+        faults.append(f"metric/all names {sorted(metrics)}")
+    if loss != {"arbiter_0": {"loss": [[i, v] for i, v in
+                                       enumerate(summary)]}}:
+        faults.append(f"metric_data {loss}")
+    if any(p["parameters"].get("nn_define") != FEMNIST_DEFINE
+           or p["parameters"].get("max_iter") != iters for p in params):
+        faults.append("component/parameters without the nn_define")
+    if dag.get("component_list") != ["dataio_0", "homo_nn_0",
+                                     "evaluation_0"]:
+        faults.append(f"dag {dag}")
+    if set(logs) != tasks:
+        faults.append(f"job/log names {sorted(logs)}")
+    if config.get("dsl") != dsl or config.get("conf") != c["conf"]:
+        faults.append("job/config is not the submitted DSL and conf")
+    for name, body in (("/board page", page), ("board --server", text)):
+        missing = [t for t in sorted(tasks) if t not in body]
+        if missing or job_id not in body:
+            faults.append(f"{name} lacks {missing or job_id}")
+    if faults:
+        raise AssertionError(f"serve: job {job_id}: " + "; ".join(faults))
+    return dict(job_id=job_id, secs=secs, outs=outs, losses=losses, n=n,
+                iters=iters, board_s=board_s, html_bytes=len(page))
+
+
+def run_server_queue(client, proc, root, env, url, dsl, c):
+    """(c) the queue at FLASHE_MAX_CONCURRENT_JOB_RUN=1: a 3-party job A
+    (guest, one host, arbiter) of max_iter 1 runs while B waits (`queue
+    --server` shows it); B is stopped while it waits; C is submitted and
+    the server interrupted with C still queued.  After the server's exit
+    (A's end) A must be success, B and C canceled and never started."""
+    conf = dsl_conf(c["conf"], 2, 1)
+    server = f"http://{url}"
+    t0 = time.perf_counter()
+    a = client.submit_job(dsl, conf, timeout=RUNTIME_TIMEOUT_S)["job_id"]
+    deadline = time.time() + 60
+    while client._call("GET", "/v1/schedule/queue")["running"] != [a]:
+        if time.time() > deadline:
+            raise AssertionError(f"queue: job {a} not running")
+        time.sleep(0.1)
+    b = client.submit_job(dsl, conf, timeout=RUNTIME_TIMEOUT_S)["job_id"]
+    queue, queue_s = run_cli_text(["queue", "--server", server], env)
+    queue = json.loads(queue)
+    if queue != {"max_concurrent": 1, "running": [a], "waiting": [b]}:
+        raise AssertionError(f"queue: {queue}, expected A {a} running and "
+                             f"B {b} waiting")
+    stopped, stop_s = run_cli(["stop", "-j", b, "--server", server], env)
+    c_id = client.submit_job(dsl, conf, timeout=RUNTIME_TIMEOUT_S)["job_id"]
+    queued = client._call("GET", "/v1/schedule/queue")
+    if queued["running"] != [a] or c_id not in queued["waiting"]:
+        raise AssertionError(f"queue before the server's stop: {queued}")
+    rc = stop_server(proc, RUNTIME_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    reg = JobRegistry(str(root / "jobs"))
+    recs = {k: reg.query(j) for k, j in (("A", a), ("B", b), ("C", c_id))}
+    if rc != 0 or stopped["status"] != "canceled":
+        raise AssertionError(f"serve exited rc {rc}; stop B said {stopped}")
+    for k in ("B", "C"):
+        if (recs[k]["status"] != "canceled" or recs[k]["tasks"]
+                or "workdir" in recs[k]):
+            raise AssertionError(f"queue: job {k} {recs[k]['job_id']} "
+                                 f"{recs[k]['status']}, tasks "
+                                 f"{recs[k]['tasks']}: it started")
+    rec, outs = read_job(root, recs["A"])
+    check_job("queue job A", rec, outs, 2, 1)
+    return dict(ids=(a, b, c_id), secs=secs, queue_s=queue_s,
+                stop_s=stop_s, queue=queue, outs=outs)
+
+
+def run_cluster(root, env):
+    """(d) `cluster -c CONF.json --run-local`: the broker and the guest, one
+    host and the arbiter of RUNTIME_CONFIG with n_clients 2, each a process
+    on the card, against the in-process submit of the same config (this
+    process, submit's TF32 settings): every return code 0, every party on
+    the card, 2 double launches a client an iteration and none at the
+    arbiter, one model at the two clients, losses within
+    RUNTIME_LOSS_RTOL."""
+    with open(ROOT / "examples" / "configs" / RUNTIME_CONFIG) as f:
+        cfg = json.load(f)
+    cfg["n_clients"], n, iters = 2, 2, cfg["param"]["max_iter"]
+    job_path = root / "cluster_job.json"
+    job_path.write_text(json.dumps(cfg))
+    param = HomoNNParam.from_dict(cfg["param"])
+    parties = {"guest": [], "host": [], "arbiter": [
+        {"out": str(root / "cluster_arbiter_0.out")}]}
+    for i, (x, y) in enumerate(federated_dataset(
+            cfg.get("dataset", param.model), n,
+            cfg.get("samples_per_client", 128), seed=cfg.get("seed", 0))):
+        role, pid = ("guest", 0) if i == 0 else ("host", i - 1)
+        np.savez(root / f"cluster_{role}_{pid}.npz", x=x, y=y)
+        parties[role].append({"data": str(root / f"cluster_{role}_{pid}.npz"),
+                              "out": str(root / f"cluster_{role}_{pid}.out")})
+    conf_path = root / "cluster_conf.json"
+    conf_path.write_text(json.dumps({
+        "broker": {"host": "127.0.0.1", "port": 0},
+        "job": {"id": "phase13", "config": job_path.name},
+        "parties": parties, "python": sys.executable}))
+    rcs, secs = run_cli(["cluster", "-c", str(conf_path), "--run-local",
+                         "--timeout", str(RUNTIME_TIMEOUT_S - 60)], env)
+    if rcs != dict.fromkeys(tasks_of(n), 0):
+        raise AssertionError(f"cluster --run-local: return codes {rcs}")
+    outs = {}
+    for task in tasks_of(n):
+        with open(root / f"cluster_{task}.out", "rb") as f:
+            outs[task] = pickle.load(f)
+    rec = {"status": "success", "tasks": {t: {"status": "success"}
+                                          for t in tasks_of(n)}}
+    check_job("cluster --run-local", rec, outs, n, iters)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["submit", "-c", str(job_path), "--json"])
+    submit_s = time.perf_counter() - t0
+    ref = json.loads(buf.getvalue().strip().splitlines()[-1])
+    losses = outs["arbiter_0"]["loss_history"]
+    if rc != 0 or not np.allclose(losses, ref["loss_per_round"],
+                                  rtol=RUNTIME_LOSS_RTOL, atol=0):
+        raise AssertionError(f"cluster --run-local: losses {losses}, "
+                             f"in-process submit {ref['loss_per_round']} "
+                             f"(rtol {RUNTIME_LOSS_RTOL})")
+    return dict(secs=secs, submit_s=submit_s, outs=outs, losses=losses,
+                ref=ref["loss_per_round"], n=n, iters=iters)
+
+
+def print_server_profile(b, c, smi):
+    """The server job's steady iteration by phase at the guest and the
+    arbiter, beside phase 12 (c)'s."""
+    print(f"the steady iteration ({b['iters']} of {b['iters']}) of the DSL "
+          f"job by party, ms, host clock, a synchronize of the party's own "
+          f"work at each phase's ends, {smi}:")
+    for task, start, names in (("guest_0", "local train", TRAIN_PHASES),
+                               ("arbiter_0", "collect", ARBITER_PHASES)):
+        rows = [(what, steady(r["outs"][task]["phase_log"], start,
+                              r["iters"]))
+                for what, r in (("serve", b), ("submit-dsl --processes", c))]
+        print(f"  {task}: " + "; ".join(
+            f"{what} {sum(ph.values()):.2f} (" + ", ".join(
+                f"{k} {ph.get(k, 0.0):.2f}" for k in names) + ")"
+            for what, ph in rows))
+
+
+def run_server_phase(root, env, c, smi):
+    """Phase 13, over phase 12's stores and DataIO tables (c: phase 12
+    (c)'s job): (a)-(c) the job server, (d) the cluster.  Returns the mask
+    kernel's double launches in the server's party processes and in the
+    cluster's."""
+    with open(ROOT / "examples" / "dsl" / "train_job_dsl.json") as f:
+        dsl = json.load(f)
+    proc, url, start_s = start_server(root, env)
+    try:
+        client = FlasheClient(f"http://{url}")
+        print(f"python -m flashe_tpu_torch serve --port 0 "
+              f"(FLASHE_MAX_CONCURRENT_JOB_RUN=1): {start_s:.2f} s to its "
+              f"address, http://{url}, {client.version()}")
+        b = run_server_job(client, root, env, url, dsl, c)
+        print(f"the DSL job of phase 12 (c) submitted over HTTP "
+              f"(FlasheClient.submit_job, wait_job): {b['secs']:.2f} s for "
+              f"{b['n'] + 1} party processes; every task success, every "
+              f"client on the card with 2 x {b['iters']} double launches, "
+              f"none at the arbiter, one model digest; losses "
+              f"{[round(float(v), 6) for v in b['losses']]} against phase 12 "
+              f"(c)'s {[round(float(v), 6) for v in c['losses']]} (rtol "
+              f"{SERVER_LOSS_RTOL}); tracking, DAG, logs, config and the "
+              f"{b['html_bytes']:,}-byte /board page name every task; "
+              f"board -j --server {b['board_s']:.2f} s")
+        print_server_profile(b, c, smi)
+        q = run_server_queue(client, proc, root, env, url, dsl, c)
+        a_id, b_id, c_id = q["ids"]
+        print(f"the queue: A {a_id} (guest, 1 host, arbiter, max_iter 1) "
+              f"running, B {b_id} waiting ({q['queue']}; queue --server "
+              f"{q['queue_s']:.2f} s), B stopped ({q['stop_s']:.2f} s), C "
+              f"{c_id} queued, the server interrupted: A success (2 double "
+              f"launches a client), B and C canceled and never started; "
+              f"{q['secs']:.2f} s from A's submit to the server's exit")
+    finally:
+        stop_server(proc, 60)
+    d = run_cluster(root, env)
+    print(f"python -m flashe_tpu_torch cluster -c CONF.json --run-local "
+          f"({RUNTIME_CONFIG}, n_clients 2: broker, guest, host, arbiter, "
+          f"one process each): {d['secs']:.2f} s; every return code 0, every "
+          f"party on the card, 2 x {d['iters']} double launches a client and "
+          f"none at the arbiter, one model digest; losses "
+          f"{[round(float(v), 6) for v in d['losses']]} against "
+          f"{d['ref']} from the in-process submit of the same config "
+          f"({d['submit_s']:.2f} s, rtol {RUNTIME_LOSS_RTOL})")
+    return {"server": sum(o["mask_launches"]["double"]
+                          for r in (b, q) for o in r["outs"].values()),
+            "cluster": sum(o["mask_launches"]["double"]
+                           for o in d["outs"].values())}
+
+
 def print_runtime_profile(a, in_process, smi):
     """Each party's steady iteration by phase, in process (phase 10) and
     as processes (phase 12 (a))."""
@@ -2794,8 +3124,10 @@ def run_runtime_phase(dev, in_process, smi):
     """Phase 12 (after phase 10, whose in-process run it is compared
     with): (a) the processes, (b) predict, (c) the DSL job.  Every store
     lies in a temporary directory that is removed after; a party process
-    still running at the end is stopped by its exact PID.  Returns the
-    mask kernel's double launches in the party processes."""
+    still running at the end is stopped by its exact PID.  Then phase 13
+    over the same stores.  Returns the mask kernel's double launches in
+    phase 12's party processes ("processes"), the server's ("server") and
+    the cluster's ("cluster")."""
     torch.cuda.empty_cache()
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_runtime_"))
     env = runtime_env(root)
@@ -2842,8 +3174,13 @@ def run_runtime_phase(dev, in_process, smi):
               f"and the guest's model bit for bit; losses "
               f"{[round(v, 6) for v in c['losses']]}; the clients' "
               f"Evaluation accuracy {acc}")
-        return sum(o["mask_launches"]["double"]
-                   for r in (a, c) for o in r["outs"].values())
+        launches = {"processes": sum(o["mask_launches"]["double"]
+                                     for r in (a, c)
+                                     for o in r["outs"].values())}
+        t0 = time.perf_counter()
+        launches.update(run_server_phase(root, env, c, smi))
+        print(f"phase 13: {time.perf_counter() - t0:.2f} s (host clock)")
+        return launches
     finally:
         stop_jobs(root)
         shutil.rmtree(root, ignore_errors=True)
@@ -3161,7 +3498,8 @@ def main(argv=None) -> int:
     # federated training: the HomoNN roles through run_roles, as submit
     train_launches, in_process = run_training_phase(dev, tf32)
     # the job runtime: the same configuration one process a party, predict,
-    # a DSL job; the parent's predict runs with submit's TF32 settings
+    # a DSL job; the parent's predict runs with submit's TF32 settings; then
+    # the job server and the cluster over the same stores
     with submit_tf32(tf32):
         runtime_launches = run_runtime_phase(dev, in_process, smi)
     # the general-HE baselines, at full width and in training
@@ -3212,7 +3550,9 @@ def main(argv=None) -> int:
         "launches_federated": fed_launches["double"],
         "launches_per_federated_round": fed_launches["double"] // FED_ROUNDS,
         "launches_training": trained("double"),
-        "launches_processes": runtime_launches,
+        "launches_processes": runtime_launches["processes"],
+        "launches_server": runtime_launches["server"],
+        "launches_cluster": runtime_launches["cluster"],
         "max_abs_err": max_err,
         "ms": times[N_FEMNIST][0],
         "host_calls_ms": times[N_FEMNIST][2],

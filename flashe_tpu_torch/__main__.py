@@ -5,6 +5,9 @@
     python -m flashe_tpu_torch submit-dsl -d train_job_dsl.json -c train_job_conf.json
     python -m flashe_tpu_torch predict -c CFG --model NS[:VERSION]
     python -m flashe_tpu_torch keygen
+    python -m flashe_tpu_torch serve --port 9380          # the job server
+    python -m flashe_tpu_torch submit-dsl -d DSL -c CONF --server URL
+    python -m flashe_tpu_torch cluster -c deploy/cluster_conf.yml --plan
 
 One JSON config selects a workload (model, scheme, clients, data); a
 FATE-style DSL and job conf pair runs through `submit-dsl` (a Keras
@@ -26,10 +29,15 @@ The local stores: `jobs` / `query` / `stop` / `logs` (the job registry,
 shared with the JAX package), `upload` / `download` / `tables` (the
 dataset store, shared), `permission` (the privilege store, shared),
 `models` / `bind` (the model store, the port's own: its checkpoints are
-not the JAX package's; runtime/model_manager.py).  The job server and its
-clients (`--server`, `serve`, `board`, `tracking`, `dag`, `queue`) and the
-cluster deployment (`broker`, `storage-node`, `party`, `mesh-party`,
-`cluster`) raise NotImplementedError naming their ROADMAP.md item.
+not the JAX package's; runtime/model_manager.py).  `board`, `tracking` and
+`dag` read the registry too.  With --server URL each of these commands asks
+a running job server instead (runtime/client.py); `serve` runs one
+(runtime/server.py: each submitted DSL job one process a party, on the card
+unless `serve --cpu`), and `queue` reads its job queue.  The cluster
+deployment (runtime/cluster.py): `broker` runs the federation exchange,
+`party` one party of a job against it, `cluster` plans a cluster conf or
+runs it on this machine.  `storage-node` and `mesh-party` raise
+NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -39,28 +47,21 @@ import json
 import os
 import sys
 
-_LATER = {
-    "server": "item 4: the HTTP job server and client, with apps, board "
-              "and webboard",
-    "cluster": "item 4: cluster, broker and party",
-    "storage": "item 4: data/{table,codec,egg,kvstore,remote_kv} with "
-               "native.py",
-    "mesh": "item 5: multi-GPU",
+_UNPORTED = {
+    "storage-node": "item 4: data/{table,codec,egg,kvstore,remote_kv} with "
+                    "native.py",
+    "mesh-party": "item 5: multi-GPU",
 }
-_UNPORTED = {"serve": "server", "board": "server", "tracking": "server",
-             "dag": "server", "queue": "server", "broker": "cluster",
-             "party": "cluster", "cluster": "cluster",
-             "storage-node": "storage", "mesh-party": "mesh"}
 
 
-def _later(what: str, key: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                               f"queue 1, {_LATER[key]})")
+def _client(args):
+    """The job server's client where the command was given --server, else
+    None (the local stores)."""
+    if not getattr(args, "server", None):
+        return None
+    from flashe_tpu_torch.runtime.client import FlasheClient
 
-
-def _no_server(args, command: str):
-    if getattr(args, "server", None):
-        raise _later(f"{command} --server", "server")
+    return FlasheClient(args.server)
 
 
 def _device(args):
@@ -169,12 +170,25 @@ def cmd_submit(args) -> int:
 def cmd_submit_dsl(args) -> int:
     """FATE-style submission: -d train_job_dsl.json -c train_job_conf.json
     (fate_flow_client.py:196-225).  Reference job confs work unchanged —
-    nn_define JSON is interpreted directly."""
-    _no_server(args, "submit-dsl")
+    nn_define JSON is interpreted directly.  With --server the job runs
+    on the server, on its device."""
     with open(args.dsl) as f:
         dsl = json.load(f)
     with open(args.config) as f:
         conf = json.load(f)
+    client = _client(args)
+    if client is not None:
+        sub = client.submit_job(dsl, conf)
+        job_id = sub["job_id"]
+        if args.no_wait:
+            print(json.dumps(sub))
+            return 0
+        rec = client.wait_job(job_id)
+        res = client.job_result(job_id)
+        print(json.dumps({"job_id": job_id, "status": rec["status"],
+                          "result": res.get("result")},
+                         indent=None if args.json else 1))
+        return 0 if rec["status"] == "success" else 1
     device = _device(args)
     if args.processes:
         from flashe_tpu_torch.runtime.job import submit_dsl_job
@@ -281,10 +295,13 @@ def cmd_keygen(args) -> int:
 
 
 def cmd_jobs(args) -> int:
-    _no_server(args, "jobs")
-    from flashe_tpu_torch.runtime.job_manager import default_registry
+    client = _client(args)
+    if client is not None:
+        rows = client.list_jobs()
+    else:
+        from flashe_tpu_torch.runtime.job_manager import default_registry
 
-    rows = default_registry().list_jobs()
+        rows = default_registry().list_jobs()
     if args.json:
         print(json.dumps(rows))
         return 0
@@ -295,27 +312,38 @@ def cmd_jobs(args) -> int:
 
 
 def cmd_query(args) -> int:
-    _no_server(args, "query")
-    from flashe_tpu_torch.runtime.job_manager import default_registry
+    client = _client(args)
+    if client is not None:
+        rec = client.query_job(args.job_id)
+    else:
+        from flashe_tpu_torch.runtime.job_manager import default_registry
 
-    print(json.dumps(default_registry().query(args.job_id), indent=1))
+        rec = default_registry().query(args.job_id)
+    print(json.dumps(rec, indent=1))
     return 0
 
 
 def cmd_stop(args) -> int:
-    _no_server(args, "stop")
-    from flashe_tpu_torch.runtime.job_manager import default_registry
+    client = _client(args)
+    if client is not None:
+        rec = client.stop_job(args.job_id)
+    else:
+        from flashe_tpu_torch.runtime.job_manager import default_registry
 
-    rec = default_registry().stop(args.job_id)
+        rec = default_registry().stop(args.job_id)
     print(json.dumps({"job_id": rec["job_id"], "status": rec["status"]}))
     return 0
 
 
 def cmd_logs(args) -> int:
-    from flashe_tpu_torch.runtime.job_manager import default_registry
+    client = _client(args)
+    if client is not None:
+        logs = client.job_log(args.job_id, task=args.task, tail=args.tail)
+    else:
+        from flashe_tpu_torch.runtime.job_manager import default_registry
 
-    logs = default_registry().read_log(args.job_id, task=args.task,
-                                       tail=args.tail)
+        logs = default_registry().read_log(args.job_id, task=args.task,
+                                           tail=args.tail)
     for task, text in logs.items():
         print(f"===== {task} =====")
         print(text)
@@ -324,33 +352,213 @@ def cmd_logs(args) -> int:
 
 def cmd_permission(args) -> int:
     """Privilege grant/revoke/query (permission_app analogue)."""
-    _no_server(args, "permission")
     if args.action in ("grant", "revoke") and not (
             args.variable and args.src_role and args.dst_role):
         raise SystemExit(
             "grant/revoke need --variable --src-role --dst-role")
-    from flashe_tpu_torch.runtime.permission import default_privilege_store
-
-    store = default_privilege_store()
-    if args.action == "query":
-        out = {"privileges": store.query(args.src_role)}
-    elif args.action == "grant":
-        out = store.grant(args.variable, args.src_role, args.dst_role)
+    client = _client(args)
+    if client is not None:
+        if args.action == "query":
+            out = client._call("POST", "/v1/permission/query/privilege",
+                               {"src_role": args.src_role})
+        else:
+            route = ("/v1/permission/grant/privilege"
+                     if args.action == "grant"
+                     else "/v1/permission/delete/privilege")
+            out = client._call("POST", route,
+                               {"variable": args.variable,
+                                "src_role": args.src_role,
+                                "dst_role": args.dst_role})
     else:
-        out = store.revoke(args.variable, args.src_role, args.dst_role)
+        from flashe_tpu_torch.runtime.permission import (
+            default_privilege_store,
+        )
+
+        store = default_privilege_store()
+        if args.action == "query":
+            out = {"privileges": store.query(args.src_role)}
+        elif args.action == "grant":
+            out = store.grant(args.variable, args.src_role, args.dst_role)
+        else:
+            out = store.revoke(args.variable, args.src_role,
+                               args.dst_role)
     print(json.dumps(out, indent=1))
     return 0
+
+
+# -- the job server and its views (fate_flow server, tracking, pipeline,
+#    schedule apps and FATEBoard analogues) ----------------------------------
+
+
+def cmd_serve(args) -> int:
+    from flashe_tpu_torch.runtime.server import serve
+
+    serve(args.host, args.port, device=_device(args))
+    return 0
+
+
+def cmd_board(args) -> int:
+    """Terminal dashboard for one job (FATEBoard analogue)."""
+    from flashe_tpu_torch.runtime.board import render_job
+
+    client = _client(args)
+    if client is not None:
+        rec = client.query_job(args.job_id)
+        result = client.job_result(args.job_id)
+    else:
+        from flashe_tpu_torch.runtime.apps import load_result
+        from flashe_tpu_torch.runtime.job_manager import default_registry
+
+        reg = default_registry()
+        rec = reg.query(args.job_id)
+        summary = load_result(reg, args.job_id)
+        result = None if summary is None else {"result": summary}
+    print(render_job(rec, result))
+    return 0
+
+
+def cmd_tracking(args) -> int:
+    """Tracking queries (fate_flow tracking_app analogue)."""
+    if args.what == "metric-data" and not args.component:
+        raise SystemExit("metric-data needs --component")
+    client = _client(args)
+    if client is not None:
+        if args.what == "data-view":
+            out = client._call("POST", "/v1/tracking/job/data_view",
+                               {"job_id": args.job_id})
+        elif args.what == "metrics":
+            out = client._call("POST", "/v1/tracking/component/metric/all",
+                               {"job_id": args.job_id})
+        else:
+            out = client._call("POST",
+                               "/v1/tracking/component/metric_data",
+                               {"job_id": args.job_id,
+                                "component_name": args.component,
+                                "role": args.role,
+                                "metric_name": args.metric})
+    else:
+        from flashe_tpu_torch.runtime import apps
+        from flashe_tpu_torch.runtime.job_manager import default_registry
+
+        reg = default_registry()
+        if args.what == "data-view":
+            out = apps.job_data_view(reg, args.job_id)
+        elif args.what == "metrics":
+            out = apps.metric_all(reg, args.job_id)
+        else:
+            out = apps.metric_data(reg, args.job_id, args.component,
+                                   role=args.role, metric_name=args.metric)
+    print(json.dumps(out, indent=1))
+    return 0
+
+
+def cmd_dag(args) -> int:
+    """Pipeline DAG of a submitted DSL job (pipeline_app analogue)."""
+    client = _client(args)
+    if client is not None:
+        out = client._call("POST", "/v1/pipeline/dag/dependency",
+                           {"job_id": args.job_id})
+    else:
+        from flashe_tpu_torch.runtime import apps
+        from flashe_tpu_torch.runtime.job_manager import default_registry
+
+        out = apps.dag_dependency(default_registry(), args.job_id)
+    print(json.dumps(out, indent=1))
+    return 0
+
+
+def cmd_queue(args) -> int:
+    """Job queue of a running server (schedule_app analogue)."""
+    print(json.dumps(_client(args)._call("GET", "/v1/schedule/queue"),
+                     indent=1))
+    return 0
+
+
+# -- the cluster deployment (deployment/ analogue) ---------------------------
+
+
+def cmd_broker(args) -> int:
+    """Run the federation exchange standalone (proxy/route-table
+    analogue): the port's Python FedBroker (--python changes nothing;
+    the native broker waits for native/'s bindings)."""
+    from flashe_tpu_torch.runtime.cluster import run_broker
+
+    run_broker(args.host, args.port)
+    return 0
+
+
+def cmd_party(args) -> int:
+    """Join a cluster job as one party from this machine."""
+    host, _, port = args.broker.rpartition(":")
+    if not host:
+        print("party: --broker must be host:port", file=sys.stderr)
+        return 2
+
+    from flashe_tpu_torch.runtime.cluster import build_party_cfg, run_party
+
+    dsl = conf = param = None
+    n_hosts = None
+    data = args.data
+    if args.dsl:
+        with open(args.dsl) as f:
+            dsl = json.load(f)
+        with open(args.config) as f:
+            conf = json.load(f)
+    else:
+        with open(args.config) as f:
+            job_cfg = json.load(f)
+        param = job_cfg["param"]
+        n_hosts = int(job_cfg.get("n_clients", 3)) - 1
+        if data and data.endswith(".csv") and args.role != "arbiter":
+            import tempfile
+
+            import numpy as np
+
+            from flashe_tpu_torch.data.io import read_dense_csv
+
+            x, y = read_dense_csv(data)
+            data = os.path.join(tempfile.mkdtemp(prefix="flashe_party_"),
+                                "data.npz")
+            np.savez(data, x=x, y=y)
+
+    cfg = build_party_cfg(
+        args.role, args.party_id, (host, int(port)), args.job_id,
+        dsl=dsl, conf=conf, param=param, n_hosts=n_hosts, data=data,
+        data_root=args.data_root, out=args.out,
+        checkpoint=args.checkpoint, device="cpu" if args.cpu else "cuda")
+    out = run_party(cfg)
+    brief = {k: v for k, v in out.items()
+             if k in ("role", "party_id", "device", "loss_history")}
+    brief["out"] = cfg["out"]
+    print(json.dumps(brief, default=str))
+    return 0
+
+
+def cmd_cluster(args) -> int:
+    from flashe_tpu_torch.runtime.cluster import main as cluster_main
+
+    argv = ["-c", args.config, "--timeout", str(args.timeout)]
+    argv.append("--plan" if args.plan
+                else "--run-local" if args.run_local else "--run")
+    return cluster_main(argv + ["--cpu"] * args.cpu)
 
 
 # -- model manager (fate_flow_client -f load/bind analogues) ----------------
 
 
 def cmd_models(args) -> int:
-    from flashe_tpu_torch.runtime.model_manager import default_model_manager
+    client = _client(args)
+    if client is not None:
+        listed = client.list_models(args.namespace)
+        rows, bound = listed["versions"], listed["bound"]
+    else:
+        from flashe_tpu_torch.runtime.model_manager import (
+            default_model_manager,
+        )
 
-    mm = default_model_manager()
-    rows = mm.list_versions(args.namespace)
-    bound = mm.bound_version(args.namespace)
+        mm = default_model_manager()
+        rows = mm.list_versions(args.namespace)
+        bound = mm.bound_version(args.namespace)
     if args.json:
         print(json.dumps({"versions": rows, "bound": bound}))
         return 0
@@ -362,10 +570,16 @@ def cmd_models(args) -> int:
 
 
 def cmd_bind(args) -> int:
-    from flashe_tpu_torch.runtime.model_manager import default_model_manager
+    client = _client(args)
+    if client is not None:
+        out = client.bind_model(args.namespace, args.version)
+    else:
+        from flashe_tpu_torch.runtime.model_manager import (
+            default_model_manager,
+        )
 
-    print(json.dumps(default_model_manager().bind(args.namespace,
-                                                  args.version)))
+        out = default_model_manager().bind(args.namespace, args.version)
+    print(json.dumps(out))
     return 0
 
 
@@ -373,29 +587,51 @@ def cmd_bind(args) -> int:
 
 
 def cmd_upload(args) -> int:
-    from flashe_tpu_torch.data.store import default_store
+    client = _client(args)
+    if client is not None:
+        # the CSV's text travels in the body (the server's store)
+        with open(args.file) as f:
+            meta = client._call("POST", "/v1/data/upload", {
+                "namespace": args.namespace, "name": args.name,
+                "csv": f.read(), "label_index": args.label_index,
+                "unlabeled": args.unlabeled,
+                "has_header": not args.no_header,
+                "partition": args.partition})
+    else:
+        from flashe_tpu_torch.data.store import default_store
 
-    meta = default_store().upload_csv(
-        args.file, args.namespace, args.name,
-        label_index=None if args.unlabeled else args.label_index,
-        has_header=not args.no_header, partition=args.partition)
+        meta = default_store().upload_csv(
+            args.file, args.namespace, args.name,
+            label_index=None if args.unlabeled else args.label_index,
+            has_header=not args.no_header, partition=args.partition)
     print(json.dumps(meta))
     return 0
 
 
 def cmd_download(args) -> int:
-    from flashe_tpu_torch.data.store import default_store
+    client = _client(args)
+    if client is not None:
+        with open(args.out, "w") as f:
+            f.write(client.download(args.namespace, args.name))
+        meta = client.table_info(args.namespace, args.name)
+    else:
+        from flashe_tpu_torch.data.store import default_store
 
-    meta = default_store().download_csv(args.namespace, args.name, args.out)
+        meta = default_store().download_csv(args.namespace, args.name,
+                                            args.out)
     print(json.dumps({"namespace": meta["namespace"], "name": meta["name"],
                       "count": meta["count"], "out": args.out}))
     return 0
 
 
 def cmd_tables(args) -> int:
-    from flashe_tpu_torch.data.store import default_store
+    client = _client(args)
+    if client is not None:
+        rows = client.list_tables()
+    else:
+        from flashe_tpu_torch.data.store import default_store
 
-    rows = default_store().list_tables()
+        rows = default_store().list_tables()
     if args.json:
         print(json.dumps(rows))
         return 0
@@ -406,7 +642,8 @@ def cmd_tables(args) -> int:
 
 
 def cmd_unported(args) -> int:
-    raise _later(args.cmd, _UNPORTED[args.cmd])
+    raise NotImplementedError(f"{args.cmd} is not ported yet (ROADMAP.md, "
+                              f"queue 1, {_UNPORTED[args.cmd]})")
 
 
 def main(argv=None) -> int:
@@ -419,9 +656,14 @@ def main(argv=None) -> int:
                         help="run every party on the CPU (default: the "
                              "card)")
 
-    def command(name, fn, help_text):
+    def command(name, fn, help_text, server=False):
         p = sub.add_parser(name, help=help_text, parents=[common])
         p.set_defaults(fn=fn)
+        if server:
+            p.add_argument("--server",
+                           help="ask a running job server "
+                                "(http://host:port) instead of the local "
+                                "stores")
         return p
 
     p = command("submit", cmd_submit,
@@ -442,7 +684,8 @@ def main(argv=None) -> int:
                         "= job id)")
 
     p = command("submit-dsl", cmd_submit_dsl,
-                "run a FATE-style DSL job (-d dsl.json -c conf.json)")
+                "run a FATE-style DSL job (-d dsl.json -c conf.json)",
+                server=True)
     p.add_argument("-d", "--dsl", required=True,
                    help="component-DAG DSL JSON (train_job_dsl.json)")
     p.add_argument("-c", "--config", required=True,
@@ -451,7 +694,8 @@ def main(argv=None) -> int:
                    help="one OS process per party over the TCP federation "
                         "broker")
     p.add_argument("--json", action="store_true")
-    p.add_argument("--server", help="a running job server (not ported)")
+    p.add_argument("--no-wait", action="store_true",
+                   help="with --server: return the job id immediately")
 
     p = command("predict", cmd_predict,
                 "run predictions with a checkpointed model")
@@ -470,31 +714,99 @@ def main(argv=None) -> int:
 
     command("keygen", cmd_keygen, "generate a fresh 256-bit PRP seed (hex)")
 
-    p = command("jobs", cmd_jobs, "list submitted jobs")
-    p.add_argument("--json", action="store_true")
-    p.add_argument("--server", help="a job server (not ported)")
-    for name, fn, help_text in (("query", cmd_query, "query a job's status"),
-                                ("stop", cmd_stop, "stop a running job")):
-        p = command(name, fn, help_text)
-        p.add_argument("-j", "--job-id", required=True)
-        p.add_argument("--server", help="a job server (not ported)")
+    p = command("broker", cmd_broker,
+                "run the federation exchange standalone (one per cluster; "
+                "parties dial it)")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=9370,
+                   help="0 = ephemeral (the bound port is printed)")
+    p.add_argument("--python", action="store_true",
+                   help="the pure-Python broker (the port's only one)")
 
-    p = command("logs", cmd_logs, "print a job's task logs")
+    p = command("party", cmd_party,
+                "join a multi-host job as one party (run on each silo's "
+                "machine)")
+    p.add_argument("--broker", required=True,
+                   help="host:port of the running broker")
+    p.add_argument("--role", required=True,
+                   choices=["guest", "host", "arbiter"])
+    p.add_argument("--party-id", type=int, default=0,
+                   help="host ordinal 0..n_hosts-1 (guest/arbiter: 0)")
+    p.add_argument("--job-id", required=True,
+                   help="shared across all parties of one job")
+    p.add_argument("-d", "--dsl",
+                   help="DSL JSON (DSL job; omit for a param job)")
+    p.add_argument("-c", "--config", required=True,
+                   help="job conf JSON (DSL) or job config with 'param' "
+                        "(param job)")
+    p.add_argument("--data", help="param jobs: this party's local training "
+                                  "data (.npz x/y or .csv)")
+    p.add_argument("--data-root",
+                   help="DSL jobs: local dataset-store root the DataIO "
+                        "component reads from")
+    p.add_argument("--out", help="output pickle path")
+    p.add_argument("--checkpoint", help="param jobs: save the final local "
+                                        "model here")
+
+    p = command("cluster", cmd_cluster,
+                "expand/run a multi-host cluster conf "
+                "(deploy/cluster_conf.yml)")
+    p.add_argument("-c", "--config", required=True)
+    mode = p.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--plan", action="store_true",
+                      help="print per-machine commands")
+    mode.add_argument("--run", action="store_true",
+                      help="execute through the conf's runner template")
+    mode.add_argument("--run-local", action="store_true",
+                      help="validate the conf on this machine (its parties "
+                           "on the card unless the conf says cpu)")
+    p.add_argument("--timeout", type=float, default=900.0)
+
+    p = command("jobs", cmd_jobs, "list submitted jobs", server=True)
+    p.add_argument("--json", action="store_true")
+    for name, fn, help_text in (("query", cmd_query, "query a job's status"),
+                                ("stop", cmd_stop, "stop a running job"),
+                                ("board", cmd_board,
+                                 "terminal job dashboard (FATEBoard "
+                                 "analogue)"),
+                                ("dag", cmd_dag,
+                                 "pipeline DAG of a submitted DSL job")):
+        p = command(name, fn, help_text, server=True)
+        p.add_argument("-j", "--job-id", required=True)
+
+    p = command("serve", cmd_serve,
+                "run the HTTP job server (fate_flow server analogue)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=9380,
+                   help="0 = ephemeral (the bound address is printed)")
+
+    p = command("logs", cmd_logs, "print a job's task logs", server=True)
     p.add_argument("-j", "--job-id", required=True)
     p.add_argument("--task", help="one task, e.g. guest_0")
     p.add_argument("--tail", type=int, default=0,
                    help="only the last N lines")
 
+    p = command("tracking", cmd_tracking,
+                "tracking queries (metrics/data-view)", server=True)
+    p.add_argument("-j", "--job-id", required=True)
+    p.add_argument("--what", default="metrics",
+                   choices=["data-view", "metrics", "metric-data"])
+    p.add_argument("--component")
+    p.add_argument("--role")
+    p.add_argument("--metric")
+
     p = command("permission", cmd_permission,
-                "grant/revoke/query transfer privileges")
+                "grant/revoke/query transfer privileges", server=True)
     p.add_argument("action", choices=["grant", "revoke", "query"])
     p.add_argument("--variable")
     p.add_argument("--src-role")
     p.add_argument("--dst-role")
-    p.add_argument("--server", help="a job server (not ported)")
+
+    p = command("queue", cmd_queue, "job-queue status of a running server")
+    p.add_argument("--server", required=True)
 
     p = command("upload", cmd_upload,
-                "ingest a dense CSV into the dataset store")
+                "ingest a dense CSV into the dataset store", server=True)
     p.add_argument("-f", "--file", required=True)
     p.add_argument("-n", "--namespace", required=True)
     p.add_argument("-t", "--name", required=True)
@@ -504,26 +816,26 @@ def main(argv=None) -> int:
     p.add_argument("--partition", type=int, default=1)
 
     p = command("download", cmd_download,
-                "export a stored table back to CSV")
+                "export a stored table back to CSV", server=True)
     p.add_argument("-n", "--namespace", required=True)
     p.add_argument("-t", "--name", required=True)
     p.add_argument("-o", "--out", required=True)
 
-    p = command("tables", cmd_tables, "list stored tables")
+    p = command("tables", cmd_tables, "list stored tables", server=True)
     p.add_argument("--json", action="store_true")
 
-    p = command("models", cmd_models, "list stored model versions")
+    p = command("models", cmd_models, "list stored model versions",
+                server=True)
     p.add_argument("-n", "--namespace", required=True)
     p.add_argument("--json", action="store_true")
 
     p = command("bind", cmd_bind,
-                "mark a model version as the serving default")
+                "mark a model version as the serving default", server=True)
     p.add_argument("-n", "--namespace", required=True)
     p.add_argument("-v", "--version", required=True)
 
-    for name, key in _UNPORTED.items():
-        p = command(name, cmd_unported,
-                    f"not ported yet ({_LATER[key]})")
+    for name, item in _UNPORTED.items():
+        p = command(name, cmd_unported, f"not ported yet ({item})")
         p.add_argument("rest", nargs=argparse.REMAINDER)
 
     args = ap.parse_args(argv)

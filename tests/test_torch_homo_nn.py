@@ -255,11 +255,13 @@ def test_submit_cli_json(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["submit-dsl", "-d", CONFIG, "-c", CONFIG, "--server", "http://x:1"],
-    ["serve"], ["broker"]])
+    ["storage-node"], ["mesh-party"],
+    ["cluster", "-c", os.path.join(os.path.dirname(CONFIG), "..", "..",
+                                   "deploy", "mesh_conf.yml"), "--plan"]])
 def test_submit_unported_options_raise(flag):
     """What the CLI does not port yet raises, naming its ROADMAP.md item
     (submit's --processes, --publish and --checkpoint-dir are ported:
-    tests/test_torch_job_runner.py)."""
+    tests/test_torch_job_runner.py; the job server and the cluster:
+    tests/test_torch_server.py, tests/test_torch_cluster.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli_main(flag + ["--cpu"])

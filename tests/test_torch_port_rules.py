@@ -12,7 +12,9 @@
   federated round's roles (`with_role`, the role classes), the roles that
   run_roles runs, the trainer and the HomoNN roles, the Keras nn_define
   interpreter, the DSL job in process and across processes, the job runner
-  and a task config with no "device".
+  and a task config with no "device", the job server (`JobServer`,
+  `serve`), the cluster's party config and party (`build_party_cfg`,
+  `run_party`, `party`) and `cluster --run-local`.
 """
 
 from __future__ import annotations
@@ -51,10 +53,13 @@ from flashe_tpu_torch.protocol.blocks import flashe as fblocks
 from flashe_tpu_torch.protocol.blocks import paillier as pblocks
 from flashe_tpu_torch.protocol.blocks import plain as plblocks
 from flashe_tpu_torch.protocol.blocks.flashe import choose_masking
+from flashe_tpu_torch.__main__ import main as cli_main
+from flashe_tpu_torch.runtime import cluster as pcluster
 from flashe_tpu_torch.runtime import config as pconfig
 from flashe_tpu_torch.runtime import job as pjob
 from flashe_tpu_torch.runtime.config import HomoNNParam
 from flashe_tpu_torch.runtime.dsl import run_dsl_job
+from flashe_tpu_torch.runtime.server import JobServer
 from flashe_tpu_torch.runtime.simulate import run_roles
 from flashe_tpu_torch.runtime.task_executor import run_task
 from flashe_tpu_torch.quant import aciq as paciq
@@ -98,7 +103,9 @@ def test_port_and_chip_smoke_import_no_jax_package():
                  "runtime.permission", "runtime.model_manager", "data.io",
                  "data.store", "nn.evaluation", "nn.cross_validation",
                  "nn.keras_define", "runtime.dsl", "runtime.task_executor",
-                 "runtime.job"):
+                 "runtime.job", "runtime.board", "runtime.webboard",
+                 "runtime.apps", "runtime.client", "runtime.server",
+                 "runtime.cluster"):
         assert f"flashe_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -268,6 +275,19 @@ def _constructors():
         "submit_dsl_job": lambda: pjob.submit_dsl_job(dsl, conf),
         "run_dsl_job": lambda: run_dsl_job(dsl, conf),
         "run_task": lambda: run_task({"role": "guest", "party_id": 0}),
+        "JobServer": lambda: JobServer("127.0.0.1", 0),
+        "build_party_cfg": lambda: pcluster.build_party_cfg(
+            "arbiter", 0, ("127.0.0.1", 1), "j", param={}, n_hosts=1),
+        "run_party": lambda: pcluster.run_party(
+            {"role": "arbiter", "party_id": 0}),
+        "serve": lambda: cli_main(["serve", "--port", "0"]),
+        "party": lambda: cli_main([
+            "party", "--broker", "127.0.0.1:1", "--role", "arbiter",
+            "--job-id", "j", "-c", os.path.join(REPO, "examples", "configs",
+                                                "mlp_flashe.json")]),
+        "cluster": lambda: cli_main([
+            "cluster", "-c", os.path.join(REPO, "deploy", "cluster_conf.yml"),
+            "--run-local"]),
     }
 
 
@@ -283,7 +303,8 @@ def _constructors():
     "with_role", "run_roles", "MLP", "CifarResNet", "CharLSTM",
     "build_model", "LocalTrainer", "HomoNNGuest", "HomoNNHost",
     "HomoNNArbiter", "KerasDefineModel", "submit_job", "submit_dsl_job",
-    "run_dsl_job", "run_task"])
+    "run_dsl_job", "run_task", "JobServer", "build_party_cfg", "run_party",
+    "serve", "party", "cluster"])
 def test_entry_points_default_to_the_card(name):
     """Called with no device, each entry point asks for the card: on a host
     without one it raises and never carries on on the CPU."""
