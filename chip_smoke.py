@@ -178,6 +178,31 @@ Phases, each of which fails the run:
      card): every return code 0, 2 double launches a client an iteration,
      none at the arbiter, one model digest, losses within 1e-3 relative of
      the in-process submit of the same config.
+ 14. the scheme comparison (run after phase 11): `python -m
+     flashe_tpu_torch.tools.compare_schemes --out F`, a process of its own
+     on the card, at full width (1,206,590 parameters, 24 batches of 128 a
+     round) with its six default rows: every row `correct` (for flashe and
+     flashe+sparse ten clients' decrypted sum equal to their summed q mod
+     2^20), the wire MB a client exactly 9.653 / 6.033 / 1.237 / 12.114 /
+     111.542 / 222.331, the platform the card (its nvidia-smi line), and
+     each row's kernel launches: 15 double mask launches in each FLASHE
+     row (4 timed, 11 in the check), mont_mul and mont_exp_rows in the
+     Paillier row, none in the others.  It prints one `comparison` JSON
+     line (the rows, the claims, the card's name and power limit);
+ 15. the table data plane (host code, no card): `python -m
+     flashe_tpu_torch storage-node` on a temporary directory, which must
+     run the native server (csrc/kvserver.cpp built with g++; a failed
+     build fails the phase), a session bound to it, `upload_csv` of a
+     dense CSV written from the seed, `DataStore.to_dtable` of the same
+     CSV, both tables' Instances equal to the numpy arrays; mapValues and
+     reduce through EXEC in the node's egg processor (the client issues no
+     ITER or GET meanwhile), the features' sum within 1e-4 of numpy's and
+     the labels' sum exact; the egg processes' command line names
+     flashe_tpu_torch.data.egg; EncryptModeCalculator ("fast") with
+     FloatPaillier (1024-bit key) over the features' table, two rounds,
+     every decrypt within 1e-9 of the value it encrypts; the node stopped
+     by an interrupt and its processes gone.  It prints which backend ran
+     (server, local store, pickler).
 It prints ptxas's registers and spills of every kernel instance after the
 build and, where the toolkit has cuobjdump, the mask kernel's instruction
 counts; the kernels' JSON line and the card's name and power limit, then as
@@ -201,9 +226,11 @@ import argparse
 import collections
 import concurrent.futures
 import contextlib
+import functools
 import io
 import json
 import math
+import operator
 import os
 import pickle
 import random
@@ -229,9 +256,14 @@ from flashe_tpu_torch.fed.tcp import FedBroker, TcpFederation
 from flashe_tpu_torch.fed.transport import default_parties
 from flashe_tpu_torch.fed.variables import HomoTransferVariables
 from flashe_tpu_torch.__main__ import main as cli_main
-from flashe_tpu_torch.crypto.paillier import PaillierKeypair
+from flashe_tpu_torch.crypto.encrypt_mode import EncryptModeCalculator
+from flashe_tpu_torch.crypto.paillier import FloatPaillier, PaillierKeypair
 from flashe_tpu_torch.data import federated_dataset, synthetic_dataset
+from flashe_tpu_torch.data.io import upload_csv
+from flashe_tpu_torch.data.kvstore import open_store
+from flashe_tpu_torch.data.remote_kv import _EXEC, _GET, _ITER
 from flashe_tpu_torch.data.store import DataStore
+from flashe_tpu_torch.data.table import init as table_session
 from flashe_tpu_torch.nn.homo_nn import HomoNNArbiter, HomoNNGuest, HomoNNHost
 from flashe_tpu_torch.nn.keras_define import KerasDefineModel
 from flashe_tpu_torch.nn.models import FemnistCNN, init_params
@@ -258,6 +290,7 @@ from flashe_tpu_torch.runtime.simulate import run_roles
 from flashe_tpu_torch.runtime.tracking import (
     Tracker, set_tracker, tracker)
 from flashe_tpu_torch.tools import roofline
+from flashe_tpu_torch import native
 
 INT_BITS, ELEMENT_BITS, N_CLIENTS = 20, 16, 10
 ROOT = Path(__file__).resolve().parent
@@ -338,6 +371,22 @@ FEMNIST_DEFINE = {"class_name": "Sequential", "config": {
         {"class_name": "Dense",
          "config": {"name": "dense_1", "units": 62,
                     "activation": "softmax"}}]}}
+
+# phase 14: the comparison harness at its defaults, and the wire MB a client
+# of each row (docs/COMPARISON.md, exact on every device); the FLASHE rows'
+# double launches: (warm + timed) x (encrypt + decrypt pair), then the
+# check's 10 encrypts + 1 decrypt pair
+COMPARISON_WIRE_MB = {"plain": 9.653, "flashe": 6.033, "flashe+sparse": 1.237,
+                      "paillier+batch": 12.114, "bfv+batch": 111.542,
+                      "ckks+batch": 222.331}
+COMPARISON_FLASHE_DOUBLE = 2 * 2 + N_CLIENTS + 1
+COMPARISON_TIMEOUT_S = 600
+# phase 15: the table data plane: a CSV of TABLE_ROWS x TABLE_FEATURES
+# floats and a label, partitioned 4 ways; the float facade's key
+TABLE_ROWS, TABLE_FEATURES, TABLE_PARTS = 32, 4, 4
+FACADE_KEY_BITS = 1024
+FACADE_ATOL = 1e-9
+EGG_EXIT_S = 30
 
 # phase 11, the general-HE baselines: BFV at t and m of
 # cnn_bfv_q16_binf_pad.json (protocol/blocks/bfv.py's defaults), CKKS at N
@@ -3186,6 +3235,235 @@ def run_runtime_phase(dev, in_process, smi):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the scheme-comparison harness
+# ---------------------------------------------------------------------------
+
+def run_comparison_phase(smi):
+    """`python -m flashe_tpu_torch.tools.compare_schemes --out F` at its
+    defaults, a process of its own on the card; its document checked and
+    printed as one JSON line.  Returns the document and its seconds."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_compare_") as d:
+        out = Path(d) / "comparison.json"
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "flashe_tpu_torch.tools.compare_schemes",
+             "--out", str(out)], cwd=ROOT, capture_output=True, text=True,
+            timeout=COMPARISON_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"compare_schemes: rc {res.returncode}\n"
+                                 f"{res.stderr[-6000:]}")
+        doc = json.loads(out.read_text())
+    cfg, rows = doc["config"], {r["scheme"]: r for r in doc["rows"]}
+    if list(rows) != list(COMPARISON_WIRE_MB):
+        raise AssertionError(f"compare_schemes rows {list(rows)}")
+    wrong = [s for s, r in rows.items() if r["correct"] is not True]
+    if wrong:
+        raise AssertionError(f"compare_schemes: rows not correct: {wrong}")
+    wire = {s: r["wire_mb_per_client"] for s, r in rows.items()}
+    if wire != COMPARISON_WIRE_MB:
+        raise AssertionError(f"compare_schemes wire MB {wire}, expected "
+                             f"{COMPARISON_WIRE_MB}")
+    if (cfg["platform"] != "cuda" or cfg["card"] != smi
+            or cfg["params"] != N_FEMNIST):
+        raise AssertionError(f"compare_schemes config {cfg}, card {smi}")
+    want = {"plain": {}, "bfv+batch": {}, "ckks+batch": {},
+            "flashe": {"mask double": COMPARISON_FLASHE_DOUBLE},
+            "flashe+sparse": {"mask double": COMPARISON_FLASHE_DOUBLE}}
+    for s, r in rows.items():
+        got = r["launches"]
+        if s == "paillier+batch":
+            ok = (set(got) <= {"mont_mul", "mont_exp_rows"}
+                  and got.get("mont_mul", 0) > 0
+                  and got.get("mont_exp_rows", 0) > 0)
+        else:
+            ok = got == want[s]
+        if not ok:
+            raise AssertionError(f"compare_schemes {s}: launches {got}")
+    print(json.dumps({"comparison": {
+        "card": cfg["card"], "seconds": round(secs, 2),
+        "train_s_per_round": cfg["train_s_per_round"], "rows": doc["rows"],
+        "claims": doc["claims"]}}))
+    return doc, secs
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the table data plane (host code)
+# ---------------------------------------------------------------------------
+
+def write_table_csv(path: Path):
+    """A dense CSV (label, then TABLE_FEATURES floats) from the seed; the
+    float32 values it holds, and the labels."""
+    rng = np.random.RandomState(SEED)
+    x = rng.standard_normal((TABLE_ROWS, TABLE_FEATURES)).astype(np.float32)
+    y = rng.randint(0, 10, TABLE_ROWS).astype(np.int32)
+    with open(path, "w") as f:
+        f.write(",".join(["y"] + [f"x{i}" for i in range(TABLE_FEATURES)])
+                + "\n")
+        for i in range(TABLE_ROWS):
+            f.write(",".join([str(y[i])] + [repr(float(v)) for v in x[i]])
+                    + "\n")
+    return x, y
+
+
+def check_instances(table, x, y, what):
+    got = dict(table.collect())
+    if sorted(got) != list(range(TABLE_ROWS)):
+        raise AssertionError(f"{what}: keys {sorted(got)[:8]}...")
+    for i, inst in got.items():
+        if (inst.inst_id != i or inst.label != int(y[i])
+                or not np.array_equal(inst.features, x[i])):
+            raise AssertionError(f"{what}: row {i} is {inst}")
+
+
+def start_storage_node(root: Path):
+    """`python -m flashe_tpu_torch storage-node --dir root --port 0`; the
+    process, the kind of server it printed and its address."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "flashe_tpu_torch", "storage-node", "--dir",
+         str(root), "--port", "0"], cwd=ROOT, stdout=subprocess.PIPE,
+        text=True)
+    line = proc.stdout.readline()
+    if not line.startswith("storage node ("):
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"storage-node printed {line!r}")
+    return proc, line.split("(")[1].split(")")[0], line.split()[-1]
+
+
+def egg_alive(pid: int) -> bool:
+    """An egg processor still running as `pid` (a zombie's command line
+    is empty)."""
+    try:
+        return b"flashe_tpu_torch.data.egg" in Path(
+            f"/proc/{pid}/cmdline").read_bytes()
+    except OSError:
+        return False
+
+
+def run_data_plane_phase():
+    """Phase 15; returns what it printed as a dict."""
+    t0 = time.perf_counter()
+    binary = native.kvserver_binary()
+    lib = native.build_lib("kvstore.cpp", "libflashekv.so")
+    if binary is None or lib is None:
+        raise AssertionError(
+            f"the native storage node did not build: kvserver "
+            f"{native.last_error('kvserver')}, kvstore "
+            f"{native.last_error('kvstore')}")
+    import cloudpickle  # the tables ship their jobs with it
+
+    pickler = f"cloudpickle {cloudpickle.__version__}"
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_tables_"))
+    proc = None
+    try:
+        build_s = time.perf_counter() - t0
+        proc, kind, addr = start_storage_node(root / "node")
+        if kind != "native":
+            raise AssertionError(f"storage-node ran the {kind} server")
+        csv = root / "table.csv"
+        x, y = write_table_csv(csv)
+        sess = table_session("chip_smoke", storage_addr=addr)
+        up = upload_csv(sess, str(csv), "uploaded", "chip",
+                        partition=TABLE_PARTS)
+        check_instances(up, x, y, "upload_csv")
+        store = DataStore(str(root / "store"))
+        store.upload_csv(str(csv), "chip", "stored", partition=TABLE_PARTS)
+        table = store.to_dtable(sess, "chip", "stored")
+        if table.get_partitions() != TABLE_PARTS:
+            raise AssertionError(f"to_dtable: {table.get_partitions()} "
+                                 f"partitions")
+        check_instances(table, x, y, "to_dtable")
+
+        # server-side compute: the client streams no record meanwhile
+        def ops():
+            total = collections.Counter()
+            for st in sess._stores.values():
+                total.update(st.op_counts)
+            return total
+
+        before = ops()
+        t1 = time.perf_counter()
+        feats = table.mapValues(operator.attrgetter("features"))
+        fsum = feats.reduce(operator.add)
+        lsum = table.mapValues(operator.attrgetter("label")).reduce(
+            operator.add)
+        pids = {r["pid"] for r in feats._exec_fanout("reduce", operator.add,
+                                                     {})}
+        exec_s = time.perf_counter() - t1
+        after = ops()
+        if (after[_ITER], after[_GET]) != (before[_ITER], before[_GET]) \
+                or after[_EXEC] != before[_EXEC] + 5:
+            raise AssertionError(f"EXEC ops: {before} -> {after}")
+        ferr = float(np.max(np.abs(fsum - x.astype(np.float64).sum(0))))
+        if ferr > 1e-4 or lsum != int(y.sum()):
+            raise AssertionError(f"reduce: features off by {ferr}, labels "
+                                 f"{lsum} against {int(y.sum())}")
+        eggs = {pid: Path(f"/proc/{pid}/cmdline").read_bytes().split(b"\0")
+                for pid in pids}
+        for pid, argv in eggs.items():
+            if b"flashe_tpu_torch.data.egg" not in argv:
+                raise AssertionError(f"egg {pid} runs {argv}")
+
+        # the float facade through the re-encryption schedule, server-side
+        pub, priv = PaillierKeypair.generate_keypair(FACADE_KEY_BITS)
+        cipher = FloatPaillier(pub, priv)
+        calc = EncryptModeCalculator(cipher, mode="fast")
+        t2 = time.perf_counter()
+        worst = 0.0
+        for rnd, scale in enumerate((1.0, 2.0)):
+            vals = (feats if rnd == 0 else feats.mapValues(
+                functools.partial(np.multiply, scale)))
+            enc = calc.encrypt(vals)
+            got = dict(enc.collect())
+            for i in range(TABLE_ROWS):
+                dec = np.array([cipher.decrypt(c) for c in got[i]])
+                worst = max(worst, float(np.max(np.abs(
+                    dec - scale * x[i].astype(np.float64)))))
+        facade_s = time.perf_counter() - t2
+        if worst > FACADE_ATOL:
+            raise AssertionError(f"encrypt_mode decrypts off by {worst}")
+        sess.stop()
+
+        local = open_store(str(root / "local"), 2)
+        local_native = local.native
+        local.close()
+        if not local_native:
+            raise AssertionError("the local store did not load "
+                                 "libflashekv.so")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+        if rc != 0:
+            raise AssertionError(f"storage-node exited {rc}")
+        # a resident egg exits at the EOF of its stdin when the node's
+        # server exits, after its interpreter's shutdown (torch's among it)
+        deadline = time.time() + EGG_EXIT_S
+        while True:
+            alive = [pid for pid in pids if egg_alive(pid)]
+            if not alive:
+                break
+            if time.time() > deadline:
+                raise AssertionError(f"egg processes {alive} outlived the "
+                                     f"node by {EGG_EXIT_S} s")
+            time.sleep(0.2)
+        return {"server": kind, "local_store": "native", "pickler": pickler,
+                "eggs": sorted(pids), "features_err": ferr,
+                "facade_err": worst, "build_s": build_s, "exec_s": exec_s,
+                "facade_s": facade_s, "secs": time.perf_counter() - t0}
+    finally:
+        if proc is not None and proc.poll() is None:
+            # an interrupt stops the node's native server too (and with it
+            # the eggs); a kill would leave them running
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def mask_bound(count, card, m=INT_BITS, streams=2, sectors=None):
     """The mask kernel's bound at `count` lanes of m bits and `streams`
     mask streams: that many T-table AES-256 blocks for every 128 // m
@@ -3504,6 +3782,30 @@ def main(argv=None) -> int:
         runtime_launches = run_runtime_phase(dev, in_process, smi)
     # the general-HE baselines, at full width and in training
     he_rows = run_he_phase(dev, model, card, tf32)
+    # the scheme comparison, a process of its own on the card; then the
+    # table data plane on the host
+    comparison, compare_s = run_comparison_phase(smi)
+    cmp_launches = collections.Counter()
+    for row in comparison["rows"]:
+        cmp_launches.update(row["launches"])
+    print(f"phase 14: python -m flashe_tpu_torch.tools.compare_schemes "
+          f"(six rows at {N_FEMNIST:,} parameters): {compare_s:.2f} s; every "
+          f"row correct, the wire MB a client as docs/COMPARISON.md, "
+          f"launches {dict(cmp_launches)}")
+    tables = run_data_plane_phase()
+    print(f"phase 15: the table data plane: storage-node ran the "
+          f"{tables['server']} server (csrc/kvserver.cpp), the local store "
+          f"{tables['local_store']} (csrc/kvstore.cpp), jobs shipped with "
+          f"{tables['pickler']}; upload_csv and to_dtable of {TABLE_ROWS} x "
+          f"{TABLE_FEATURES} equal to the CSV's arrays; mapValues + reduce "
+          f"through EXEC in egg processes {tables['eggs']} (their command "
+          f"names flashe_tpu_torch.data.egg), features' sum within "
+          f"{tables['features_err']:.2e}; EncryptModeCalculator (fast, "
+          f"FloatPaillier {FACADE_KEY_BITS}-bit) over two rounds, decrypts "
+          f"within {tables['facade_err']:.2e}; the native build "
+          f"{tables['build_s']:.2f} s, the EXECs {tables['exec_s']:.2f} s, "
+          f"the facade {tables['facade_s']:.2f} s, the phase "
+          f"{tables['secs']:.2f} s (host clock)")
 
     def trained(key):
         return sum(launches[key] for launches in train_launches.values())
@@ -3553,6 +3855,7 @@ def main(argv=None) -> int:
         "launches_processes": runtime_launches["processes"],
         "launches_server": runtime_launches["server"],
         "launches_cluster": runtime_launches["cluster"],
+        "launches_comparison": cmp_launches["mask double"],
         "max_abs_err": max_err,
         "ms": times[N_FEMNIST][0],
         "host_calls_ms": times[N_FEMNIST][2],
@@ -3589,6 +3892,7 @@ def main(argv=None) -> int:
         "launches_per_round": per_round,
         "launches_federated": pl_fed_launches[name],
         "launches_training": trained(name),
+        "launches_comparison": cmp_launches[name],
         "max_abs_err": mont_err[name],
         "ms": paths[name]["ms"],
         "plain_ms": paths[name]["plain_ms"],

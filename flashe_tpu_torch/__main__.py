@@ -36,8 +36,11 @@ a running job server instead (runtime/client.py); `serve` runs one
 unless `serve --cpu`), and `queue` reads its job queue.  The cluster
 deployment (runtime/cluster.py): `broker` runs the federation exchange,
 `party` one party of a job against it, `cluster` plans a cluster conf or
-runs it on this machine.  `storage-node` and `mesh-party` raise
-NotImplementedError naming their ROADMAP.md item.
+runs it on this machine.  `storage-node` runs a persistent storage node
+(data/remote_kv.py: the native C++ server of csrc/kvserver.cpp, or the
+python one with --python), which sessions bind with
+`data.table.init(storage_addr=...)`; it is host code and touches no card.
+`mesh-party` raises NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -48,8 +51,6 @@ import os
 import sys
 
 _UNPORTED = {
-    "storage-node": "item 4: data/{table,codec,egg,kvstore,remote_kv} with "
-                    "native.py",
     "mesh-party": "item 5: multi-GPU",
 }
 
@@ -641,6 +642,29 @@ def cmd_tables(args) -> int:
     return 0
 
 
+def cmd_storage_node(args) -> int:
+    """Run a persistent storage node (eggroll storage-service analogue);
+    sessions bind with data.table.init(storage_addr=...).  It prints which
+    server runs (native or python) and its address, then serves until
+    interrupted."""
+    import time
+
+    from flashe_tpu_torch.data.remote_kv import StorageNode
+
+    node = StorageNode(args.dir, port=args.port, native=not args.python)
+    kind = "native" if node.native else "python"
+    print(f"storage node ({kind}) serving {args.dir} at {node.address}",
+          flush=True)
+    try:
+        while True:
+            if node._proc is not None and node._proc.poll() is not None:
+                return node._proc.returncode or 0
+            time.sleep(1.0)
+    except KeyboardInterrupt:
+        node.shutdown()
+    return 0
+
+
 def cmd_unported(args) -> int:
     raise NotImplementedError(f"{args.cmd} is not ported yet (ROADMAP.md, "
                               f"queue 1, {_UNPORTED[args.cmd]})")
@@ -833,6 +857,16 @@ def main(argv=None) -> int:
                 "mark a model version as the serving default", server=True)
     p.add_argument("-n", "--namespace", required=True)
     p.add_argument("-v", "--version", required=True)
+
+    p = command("storage-node", cmd_storage_node,
+                "run a persistent KV storage node (tables bind via "
+                "storage_addr)")
+    p.add_argument("--dir", required=True, help="storage root directory")
+    p.add_argument("--port", type=int, default=0,
+                   help="0 = ephemeral (the bound port is printed)")
+    p.add_argument("--python", action="store_true",
+                   help="force the pure-Python server instead of the native "
+                        "C++ one")
 
     for name, item in _UNPORTED.items():
         p = command(name, cmd_unported, f"not ported yet ({item})")

@@ -7,10 +7,13 @@ n^2).  The batch work runs as Montgomery products on (B, L) limb tensors
 every obfuscator, for the arbiter's sum a product chain mod n^2, and for
 decryption both CRT exponentiations (mod p^2 and mod q^2) as one batch.
 The big-int assembly (1 + n m, the L function, the CRT combine) stays on
-the host.  The key code is a copy of the JAX package's, which needs no JAX.
+the host.  The key code is a copy of the JAX package's, which needs no JAX,
+and so is the float facade (PaillierEncryptedNumber, FloatPaillier: the
+python-paillier surface over crypto/fixedpoint.py that
+crypto/encrypt_mode.py drives), scalar host code on python ints that
+launches no kernel, as in the JAX package.
 
-Not ported yet: set_local_devices (several cards), and the float facade
-PaillierEncryptedNumber / FloatPaillier.
+Not ported yet: set_local_devices (several cards).
 """
 
 from __future__ import annotations
@@ -19,11 +22,13 @@ import random
 
 import numpy as np
 
+from flashe_tpu_torch.crypto.fixedpoint import FixedPointNumber
 from flashe_tpu_torch.device import resolve_device
 from flashe_tpu_torch.ops import modmath
 
 __all__ = ["PaillierKeypair", "PaillierPublicKey", "PaillierPrivateKey",
-           "PaillierCipher", "getprimeover"]
+           "PaillierEncryptedNumber", "FloatPaillier", "PaillierCipher",
+           "getprimeover"]
 
 _SMALL_PRIMES = [2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47]
 
@@ -103,6 +108,93 @@ class PaillierPrivateKey:
         mq = self._l(pow(c, self.q - 1, self.qsquare), self.q) * self.hq % self.q
         u = (mp - mq) * self.q_inverse % self.p
         return (mq + u * self.q) % self.public_key.n
+
+
+class PaillierEncryptedNumber:
+    """Float-valued Paillier ciphertext (python-paillier semantics, the
+    surface the reference's stock secureprotol exposes for hetero-FL:
+    fixed-point encoding + homomorphic float add / scalar mul).  The
+    FLASHE pipeline itself moves quantized int vectors through the limb
+    kernels instead; this type backs EncryptModeCalculator parity.  Host
+    code on python ints: it launches no kernel."""
+
+    def __init__(self, public_key: PaillierPublicKey, ciphertext: int,
+                 exponent: int):
+        self.public_key = public_key
+        self.ciphertext = ciphertext
+        self.exponent = exponent
+
+    @classmethod
+    def encrypt(cls, public_key: PaillierPublicKey, value,
+                r: int | None = None) -> "PaillierEncryptedNumber":
+        fp = FixedPointNumber.encode(value, public_key.n,
+                                     public_key.max_int)
+        return cls(public_key, public_key.encrypt_scalar(fp.encoding, r),
+                   fp.exponent)
+
+    def decrypt(self, privacy_key: PaillierPrivateKey) -> float:
+        enc = privacy_key.decrypt_scalar(self.ciphertext)
+        return FixedPointNumber(enc, self.exponent, self.public_key.n,
+                                self.public_key.max_int).decode()
+
+    def _decrease_exponent_to(self, new_exponent: int
+                              ) -> "PaillierEncryptedNumber":
+        if new_exponent > self.exponent:
+            raise ValueError("cannot decrease exponent upward")
+        factor = pow(FixedPointNumber.BASE, self.exponent - new_exponent)
+        ct = pow(self.ciphertext, factor, self.public_key.nsquare)
+        return PaillierEncryptedNumber(self.public_key, ct, new_exponent)
+
+    def __add__(self, other):
+        if not isinstance(other, PaillierEncryptedNumber):
+            other = PaillierEncryptedNumber.encrypt(self.public_key,
+                                                    float(other))
+        a, b = self, other
+        if a.exponent > b.exponent:
+            a = a._decrease_exponent_to(b.exponent)
+        elif b.exponent > a.exponent:
+            b = b._decrease_exponent_to(a.exponent)
+        ct = (a.ciphertext * b.ciphertext) % self.public_key.nsquare
+        return PaillierEncryptedNumber(self.public_key, ct, a.exponent)
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self + (other * -1 if isinstance(
+            other, PaillierEncryptedNumber) else -float(other))
+
+    def __mul__(self, scalar):
+        fp = FixedPointNumber.encode(float(scalar), self.public_key.n,
+                                     self.public_key.max_int)
+        enc = fp.encoding
+        if enc >= self.public_key.n - self.public_key.max_int:
+            # negative scalar: multiply by |scalar| via the inverse ct
+            neg_ct = pow(self.ciphertext, -1, self.public_key.nsquare)
+            ct = pow(neg_ct, self.public_key.n - enc,
+                     self.public_key.nsquare)
+        else:
+            ct = pow(self.ciphertext, enc, self.public_key.nsquare)
+        return PaillierEncryptedNumber(self.public_key, ct,
+                                       self.exponent + fp.exponent)
+
+    __rmul__ = __mul__
+
+
+class FloatPaillier:
+    """python-paillier-style facade used by EncryptModeCalculator."""
+
+    def __init__(self, public_key: PaillierPublicKey,
+                 privacy_key: PaillierPrivateKey | None = None):
+        self.public_key = public_key
+        self.privacy_key = privacy_key
+
+    def encrypt(self, value) -> PaillierEncryptedNumber:
+        return PaillierEncryptedNumber.encrypt(self.public_key, value)
+
+    def decrypt(self, number: PaillierEncryptedNumber) -> float:
+        if self.privacy_key is None:
+            raise ValueError("no private key on this party")
+        return number.decrypt(self.privacy_key)
 
 
 class PaillierKeypair:

@@ -5,9 +5,8 @@ The reference ingests CSVs through fate_flow upload into eggroll tables
 of Instance(features, label) records which the DataIO component
 (federatedml/util/data_io.py, DenseFeatureReader) parses ahead of every
 training DSL.  Here ingestion is a library call: dense CSV -> numpy
-arrays, feeding the same partitioners the synthetic generators use
-(flashe_tpu_torch/data/__init__.py).  `upload_csv` into a session table
-needs the port of data/table.py, which is not there yet: it raises.
+arrays or a DTable of Instances (data/table.py), feeding the same
+partitioners the synthetic generators use (flashe_tpu_torch/data/__init__.py).
 """
 
 from __future__ import annotations
@@ -18,11 +17,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["Instance", "read_dense_csv", "upload_csv"]
+from flashe_tpu_torch.data.table import DTable, Session
 
-TABLES_LATER = ("session tables (data/table.py) are not ported yet "
-                "(ROADMAP.md, queue 1, item 4: data/{table,codec,egg,"
-                "kvstore,remote_kv})")
+__all__ = ["Instance", "read_dense_csv", "upload_csv"]
 
 
 @dataclass
@@ -66,10 +63,13 @@ def read_dense_csv(path: str, label_index: Optional[int] = 0,
     return x, np.asarray(ys, dtype=dtype)
 
 
-def upload_csv(session, path: str, name: str, namespace: str,
+def upload_csv(session: Session, path: str, name: str, namespace: str,
                label_index: Optional[int] = 0, delimiter: str = ",",
-               has_header: bool = True, partition: int = 1):
-    """fate_flow upload analogue: CSV -> session table of Instances.  Not
-    ported yet; `data.store.DataStore.upload_csv` stores a CSV as a table
-    of the on-disk dataset store."""
-    raise NotImplementedError(f"upload_csv into a session: {TABLES_LATER}")
+               has_header: bool = True, partition: int = 1) -> DTable:
+    """fate_flow upload analogue: CSV -> session table of Instances."""
+    x, y = read_dense_csv(path, label_index, delimiter, has_header)
+    table = session.table(name, namespace, partition)
+    for i in range(len(x)):
+        table.put(i, Instance(inst_id=i, features=x[i],
+                              label=None if y is None else y[i].item()))
+    return table

@@ -24,7 +24,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from flashe_tpu_torch.data.io import TABLES_LATER, read_dense_csv
+from flashe_tpu_torch.data.io import Instance, read_dense_csv
 
 __all__ = ["DataStore", "default_store"]
 
@@ -132,9 +132,14 @@ class DataStore:
         return True
 
     def to_dtable(self, session, namespace: str, name: str):
-        """Materialize a stored table as a session DTable of Instances.
-        Not ported yet."""
-        raise NotImplementedError(f"to_dtable: {TABLES_LATER}")
+        """Materialize a stored table as a session DTable of Instances."""
+        x, y, meta = self.load(namespace, name)
+        table = session.table(name, namespace, meta.get("partition", 1))
+        for i in range(len(x)):
+            table.put(i, Instance(
+                inst_id=i, features=x[i],
+                label=None if y is None else y[i].item()))
+        return table
 
 
 def default_store() -> DataStore:

@@ -255,13 +255,61 @@ def test_submit_cli_json(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["storage-node"], ["mesh-party"],
+    ["mesh-party"],
     ["cluster", "-c", os.path.join(os.path.dirname(CONFIG), "..", "..",
                                    "deploy", "mesh_conf.yml"), "--plan"]])
 def test_submit_unported_options_raise(flag):
     """What the CLI does not port yet raises, naming its ROADMAP.md item
     (submit's --processes, --publish and --checkpoint-dir are ported:
     tests/test_torch_job_runner.py; the job server and the cluster:
-    tests/test_torch_server.py, tests/test_torch_cluster.py)."""
+    tests/test_torch_server.py, tests/test_torch_cluster.py; storage-node:
+    test_storage_node_cli below)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli_main(flag + ["--cpu"])
+
+
+@pytest.mark.parametrize("server", [[], ["--python"]], ids=["native",
+                                                            "python"])
+def test_storage_node_cli(tmp_path, server):
+    """`storage-node` serves a directory: it prints which server runs and
+    its address, a session bound to it keeps a table, and an interrupt
+    stops the node (and its native server process) and flushes."""
+    import signal
+    import subprocess
+    import sys
+
+    from flashe_tpu_torch import native
+    from flashe_tpu_torch.data.table import init
+
+    if not server and native.kvserver_binary() is None:
+        pytest.skip("no compiler for the native storage node")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "flashe_tpu_torch", "storage-node", "--dir",
+         str(tmp_path / "node"), "--port", "0", "--cpu"] + server,
+        cwd=repo, stdout=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        kind = "python" if server else "native"
+        assert line.startswith(f"storage node ({kind}) serving "), line
+        addr = line.split()[-1]
+        s = init("cli", storage_addr=addr)
+        t = s.table("t", "ns", partition=2)
+        t.put_all((i, i * i) for i in range(10))
+        assert t.reduce(lambda a, b: a + b) == 285
+        s.stop()
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:  # stop its native server too, then kill
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    from flashe_tpu_torch.data.kvstore import open_store
+
+    st = open_store(str(tmp_path / "node" / "ns" / "t"), 2)
+    assert sum(st.count(p) for p in range(2)) == 10
+    st.close()

@@ -7,7 +7,8 @@ runtime/task_executor.py) and the CLI's commands over them.
 - The registry's lifecycle; `stop` kills an exact recorded PID; every
   job id or task name that would leave the registry is refused.
 - A table that the JAX package's DataStore wrote loads in the port's, and
-  the other way round, CSV export included.
+  the other way round, CSV export included; upload_csv and to_dtable give
+  a session the same Instances as the JAX package's.
 - ModelManager publish / bind / load_latest; a JAX checkpoint is refused
   with an error that names it; the port's store does not default to the
   JAX package's root.
@@ -34,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from flashe_tpu.data import table as jtable
 from flashe_tpu.data.store import DataStore as JDataStore
 from flashe_tpu.runtime.checkpoint import save_checkpoint as jsave_checkpoint
 from flashe_tpu.runtime.simulate import run_roles as jrun_roles
@@ -41,6 +43,7 @@ from flashe_tpu_torch.__main__ import main as cli_main
 from flashe_tpu_torch.data import federated_dataset
 from flashe_tpu_torch.data.io import read_dense_csv, upload_csv
 from flashe_tpu_torch.data.store import DataStore
+from flashe_tpu_torch.data.table import init
 from flashe_tpu_torch.runtime import job as pjob
 from flashe_tpu_torch.runtime.checkpoint import save_checkpoint
 from flashe_tpu_torch.runtime.config import (
@@ -171,10 +174,17 @@ def test_data_store_interchange_with_jax(tmp_path):
         DataStore(root).load("ns", "csv")
     with pytest.raises(ValueError, match="invalid"):
         DataStore(root).load("..", "x")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        upload_csv(None, str(tmp_path / "p.csv"), "t", "ns")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DataStore(root).to_dtable(None, "ns", "jax_wrote")
+    # into a session: a table of Instances, as the JAX package builds it
+    table = upload_csv(init("up"), str(tmp_path / "p.csv"), "t", "ns")
+    assert table.count() == 6 and table.get(5).label == int(y[5])
+    np.testing.assert_array_equal(table.get(5).features, x[5].reshape(-1))
+    dt = DataStore(root).to_dtable(init("dt"), "ns", "jax_wrote")
+    ref = JDataStore(root).to_dtable(jtable.init("dt"), "ns", "jax_wrote")
+    assert dt.count() == ref.count() == 6
+    for i in range(6):
+        np.testing.assert_array_equal(dt.get(i).features,
+                                      ref.get(i).features)
+        assert dt.get(i).label == ref.get(i).label == int(y[i])
     ux, uy = read_dense_csv(str(tmp_path / "p.csv"), label_index=None)
     assert uy is None and ux.shape == (6, 13)
 

@@ -14,7 +14,10 @@
   interpreter, the DSL job in process and across processes, the job runner
   and a task config with no "device", the job server (`JobServer`,
   `serve`), the cluster's party config and party (`build_party_cfg`,
-  `run_party`, `party`) and `cluster --run-local`.
+  `run_party`, `party`), `cluster --run-local`, and the scheme-comparison
+  harness (its CLI, `measure_scheme`, `measure_train_step`,
+  `check_flashe_sum`).  The table data plane, `storage-node` and the
+  Paillier float facade are host code that touches no card.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from flashe_tpu_torch.runtime.dsl import run_dsl_job
 from flashe_tpu_torch.runtime.server import JobServer
 from flashe_tpu_torch.runtime.simulate import run_roles
 from flashe_tpu_torch.runtime.task_executor import run_task
+from flashe_tpu_torch.tools import compare_schemes
 from flashe_tpu_torch.quant import aciq as paciq
 from flashe_tpu_torch.quant import quantizer as pquant
 
@@ -105,7 +109,10 @@ def test_port_and_chip_smoke_import_no_jax_package():
                  "nn.keras_define", "runtime.dsl", "runtime.task_executor",
                  "runtime.job", "runtime.board", "runtime.webboard",
                  "runtime.apps", "runtime.client", "runtime.server",
-                 "runtime.cluster"):
+                 "runtime.cluster", "native", "data.codec", "data.kvstore",
+                 "data.egg", "data.remote_kv", "data.table",
+                 "crypto.fixedpoint", "crypto.encrypt_mode",
+                 "tools.compare_schemes", "tools.roofline"):
         assert f"flashe_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -288,6 +295,12 @@ def _constructors():
         "cluster": lambda: cli_main([
             "cluster", "-c", os.path.join(REPO, "deploy", "cluster_conf.yml"),
             "--run-local"]),
+        "compare_schemes": lambda: compare_schemes.main([
+            "--params", "8", "--train-s", "1.0", "--schemes", "plain"]),
+        "measure_scheme": lambda: compare_schemes.measure_scheme(
+            "plain", 8, np.random.RandomState(0)),
+        "measure_train_step": lambda: compare_schemes.measure_train_step(1),
+        "check_flashe_sum": lambda: compare_schemes.check_flashe_sum(8),
     }
 
 
@@ -304,7 +317,8 @@ def _constructors():
     "build_model", "LocalTrainer", "HomoNNGuest", "HomoNNHost",
     "HomoNNArbiter", "KerasDefineModel", "submit_job", "submit_dsl_job",
     "run_dsl_job", "run_task", "JobServer", "build_party_cfg", "run_party",
-    "serve", "party", "cluster"])
+    "serve", "party", "cluster", "compare_schemes", "measure_scheme",
+    "measure_train_step", "check_flashe_sum"])
 def test_entry_points_default_to_the_card(name):
     """Called with no device, each entry point asks for the card: on a host
     without one it raises and never carries on on the CPU."""
