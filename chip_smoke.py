@@ -202,7 +202,34 @@ Phases, each of which fails the run:
      FloatPaillier (1024-bit key) over the features' table, two rounds,
      every decrypt within 1e-9 of the value it encrypts; the node stopped
      by an interrupt and its processes gone.  It prints which backend ran
-     (server, local store, pickler).
+     (server, local store, pickler);
+ 16. several devices on the one card (run after phase 15), at FemnistCNN's
+     width: (a) parallel/sharded.encrypted_aggregate on a 10 x 2 grid of
+     cuda:0 (a client a row, a lane shard a column, each shard's mask
+     launch at its counter offset), all in and with client 9 dropped: the
+     decrypt equal to the numpy sum mod 2^20 and, bit for bit, to the round
+     of single-device FlasheCiphers, each cell's ciphertext its slice of
+     the client's FlasheCipher.encrypt; 20 encrypts + 2 decrypt pairs a
+     round; its ms; (b) FlasheCipher.set_local_devices(4, [cuda:0] x 4):
+     the dense double and single masks of 10 clients and the path-S sparse
+     decrypt (10 survivors, parallel/party.sparse_decrypt_fanout) bit for
+     bit the unsharded cipher's; (c) set_local_devices(2, [cuda:0] x 2) on
+     Paillier (the phase's 2048-bit key: 24 values encrypted and decrypted
+     fanned, equal to the unfanned decrypt, python pow and the values;
+     mont_mul and mont_exp_rows launches a chunk), BFV and CKKS (10 clients
+     fanned, the sum decrypted exactly, or within 1e-7); (d)
+     parallel/multihost.launch_local of parallel/_multihost_child.py, 4
+     processes on cuda:0 over gloo and one over NCCL: both rounds equal to
+     the plain sum in every process, digests equal to the in-process
+     grid's; (e), started with (d)'s two groups, `cluster --run-local` of a
+     4-host mesh conf (femnist_cnn, 2 rounds, a .npz shard of synthetic
+     FEMNIST a host, the processes on cuda:0 over gloo): one model digest,
+     finite losses that fall and lie within 1e-4 of the same rounds in
+     float64 here without mask or collective (plain_mesh_losses); (f)
+     graft.dryrun_multichip(8, [cuda:0] x 8): FemnistCNN, 4 clients x 2
+     shards, the survivor check. Mask launches counted here and in the
+     children (`launches_multi_gpu`).
+It prints the script's seconds at the end of each phase.
 It prints ptxas's registers and spills of every kernel instance after the
 build and, where the toolkit has cuobjdump, the mask kernel's instruction
 counts; the kernels' JSON line and the card's name and power limit, then as
@@ -227,6 +254,7 @@ import collections
 import concurrent.futures
 import contextlib
 import functools
+import hashlib
 import io
 import json
 import math
@@ -234,6 +262,7 @@ import operator
 import os
 import pickle
 import random
+import re
 import shutil
 import signal
 import statistics
@@ -257,7 +286,8 @@ from flashe_tpu_torch.fed.transport import default_parties
 from flashe_tpu_torch.fed.variables import HomoTransferVariables
 from flashe_tpu_torch.__main__ import main as cli_main
 from flashe_tpu_torch.crypto.encrypt_mode import EncryptModeCalculator
-from flashe_tpu_torch.crypto.paillier import FloatPaillier, PaillierKeypair
+from flashe_tpu_torch.crypto.paillier import (
+    FloatPaillier, PaillierCipher, PaillierKeypair)
 from flashe_tpu_torch.data import federated_dataset, synthetic_dataset
 from flashe_tpu_torch.data.io import upload_csv
 from flashe_tpu_torch.data.kvstore import open_store
@@ -266,7 +296,7 @@ from flashe_tpu_torch.data.store import DataStore
 from flashe_tpu_torch.data.table import init as table_session
 from flashe_tpu_torch.nn.homo_nn import HomoNNArbiter, HomoNNGuest, HomoNNHost
 from flashe_tpu_torch.nn.keras_define import KerasDefineModel
-from flashe_tpu_torch.nn.models import FemnistCNN, init_params
+from flashe_tpu_torch.nn.models import FemnistCNN, build_model, init_params
 from flashe_tpu_torch.nn.trainer import LocalTrainer
 from flashe_tpu_torch.nn.weights import WeightsCodec
 from flashe_tpu_torch.ops import _build, aes, lanes, masks, modmath, ntt
@@ -281,6 +311,7 @@ from flashe_tpu_torch.protocol.blocks import paillier as pblocks
 from flashe_tpu_torch.protocol.blocks.flashe import arbiter_masking
 from flashe_tpu_torch.protocol.payload import ModelPayload
 from flashe_tpu_torch.protocol.sparsify import Sparsifier, decode_locations
+from flashe_tpu_torch.quant.aciq import ACIQ
 from flashe_tpu_torch.quant.quantizer import QuantizingClient
 from flashe_tpu_torch.runtime.checkpoint import load_checkpoint
 from flashe_tpu_torch.runtime.config import HomoNNParam
@@ -290,7 +321,10 @@ from flashe_tpu_torch.runtime.simulate import run_roles
 from flashe_tpu_torch.runtime.tracking import (
     Tracker, set_tracker, tracker)
 from flashe_tpu_torch.tools import roofline
-from flashe_tpu_torch import native
+from flashe_tpu_torch import graft, native
+from flashe_tpu_torch.parallel import multihost
+from flashe_tpu_torch.parallel.sharded import (
+    encrypt_shard, encrypted_aggregate, make_mesh, padded_lane_count)
 
 INT_BITS, ELEMENT_BITS, N_CLIENTS = 20, 16, 10
 ROOT = Path(__file__).resolve().parent
@@ -1146,7 +1180,11 @@ def check_montgomery_grid(dev):
 
 def check_exp_grid(dev, keypair):
     """mont_exp_rows against its plain version with 64-bit exponents, rows
-    of two moduli mixed; then the key's full CRT exponents against pow."""
+    of two moduli mixed, one kernel launch at each row count; then the
+    key's full CRT exponents against pow.  The plain version, whose time
+    is its sequential products whatever the rows, runs once a modulus on
+    the row counts' operands joined, and each launch is held against its
+    rows of that."""
     rng = random.Random(SEED + 1)
     err = 0
     for label, bits, ones in _mont_cases():
@@ -1158,16 +1196,21 @@ def check_exp_grid(dev, keypair):
         digits = torch.from_numpy(np.stack([
             modmath.exponent_digits(e, 64) for e in exps])).to(dev)
         tabs = (pair.n_pat, pair.npr_pat, pair.r2_pat, pair.one_pat, digits)
+        cases = []
         for B in rows:
             idx = [rng.randrange(2) for _ in range(B)]
             ai = [v % mods[k] for v, k in zip(_operands(rng, mods[0], B),
                                                idx)]
             a = modmath.to_limbs(ai, pair.L).to(dev)
             mi = torch.tensor(idx, dtype=torch.int32, device=dev)
-            got = mg.mont_exp_rows(a, mi, *tabs)
+            cases.append((B, ai, idx, a, mi, mg.mont_exp_rows(a, mi, *tabs)))
+        ref = mg.mont_exp_rows_ref(torch.cat([c[3] for c in cases]),
+                                   torch.cat([c[4] for c in cases]), *tabs)
+        lo = 0
+        for B, ai, idx, _, _, got in cases:
             what = f"{label}, {B} rows"
-            err = max(err, _same("mont_exp_rows", got, mg.mont_exp_rows_ref(
-                a, mi, *tabs), what))
+            err = max(err, _same("mont_exp_rows", got, ref[lo:lo + B], what))
+            lo += B
             if B <= 8 and modmath.from_limbs(got) != [
                     pow(x, exps[k], mods[k]) for x, k in zip(ai, idx)]:
                 raise AssertionError(f"mont_exp_rows != pow at {what}")
@@ -3464,6 +3507,512 @@ def run_data_plane_phase():
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: several devices, on one card
+# ---------------------------------------------------------------------------
+
+# (a) the grid round, its timed repetitions; (b) the party's lane shards;
+# (c) the fan-out's shards and Paillier rows (two chunks of 12: each takes
+# mont_exp_rows, which serves 8 rows or more); (d) the multi-process
+# check's processes on gloo; (e) the mesh conf's hosts, rounds and samples
+# a host; (f) the graft twin's devices (4 clients x 2 shards, FemnistCNN)
+MESH_CLIENTS, MESH_SHARDS, MESH_ROUND_REPS = 10, 2, 5
+PARTY_SHARDS = 4
+FAN_SHARDS, FAN_ROWS = 2, 24
+MULTIHOST_PROCS = 4
+MESH_HOSTS, MESH_ROUNDS, MESH_SAMPLES = 4, 2, 128
+# (e)'s losses against plain_mesh_losses: the stochastic rounding moves a
+# weight by at most one step of its layer's clip range over 2^16 - 1, the
+# loss by far less than this; a wrong degree factor, scale or sign in the
+# decode moves it by far more
+MESH_LOSS_ATOL = 1e-4
+GRAFT_DEVICES = 8
+# an encrypt's chain under a 2048-bit key: into the domain, 15 table
+# products, 4 squarings and a product for each of n's 512 base-16 digits,
+# out of the domain
+PAILLIER_ENC_MULS = 1 + 15 + 5 * 512 + 1
+
+
+def mode_delta(before):
+    """The mask kernel's launches by mode since `before` (a copy)."""
+    return {k: fm.mode_launches[k] - before[k] for k in fm.MODES}
+
+
+def flashe_clients(dev, n, it, mask="double", shards=None):
+    """n FlasheCiphers with ordinals 0..n-1 and the seed, at iteration
+    it; with `shards`, each splits its lanes over that many copies of
+    dev."""
+    out = []
+    for i in range(n):
+        c = FlasheCipher(INT_BITS, mask=mask, device=dev)
+        c.idx = i
+        c.set_num_clients(n)
+        c.generate_prp_seed(assigned_seed=SEED)
+        c.set_iter_index(it)
+        if shards:
+            c.set_local_devices(shards, [dev] * shards)
+        out.append(c)
+    return out
+
+
+def run_mesh_round(dev):
+    """(a) encrypted_aggregate on a MESH_CLIENTS x MESH_SHARDS grid of dev
+    at FemnistCNN's width, all in and then client 9 dropped: each decrypt
+    equal to the numpy sum mod 2^20 and, bit for bit, to the round of
+    single-device FlasheCiphers on the same q, and each cell's
+    encrypt_shard bit for bit its slice of that client's
+    FlasheCipher.encrypt; the launches of a round
+    (an encrypt a cell, a decrypt pair a lane shard) and its ms, host clock
+    to a synchronize, median of MESH_ROUND_REPS."""
+    n = padded_lane_count(N_FEMNIST, INT_BITS, MESH_SHARDS)
+    gen = torch.Generator(dev).manual_seed(SEED + 16)
+    q = torch.randint(0, 1 << ELEMENT_BITS, (MESH_CLIENTS, n), generator=gen,
+                      device=dev, dtype=torch.int32)
+    q_host = q.cpu().numpy().astype(np.int64)
+    mesh = make_mesh(MESH_CLIENTS, MESH_SHARDS,
+                     [dev] * (MESH_CLIENTS * MESH_SHARDS))
+    rk = flashe_clients(dev, 1, 0)[0]._round_keys
+    rounds = []
+    for it, survivors in ((0, None), (1, tuple(range(MESH_CLIENTS - 1)))):
+        alive = list(range(MESH_CLIENTS) if survivors is None else survivors)
+        torch.cuda.synchronize()
+        before = dict(fm.mode_launches)
+        got = encrypted_aggregate(mesh, rk, q, it, INT_BITS, MESH_CLIENTS,
+                                  survivors)
+        torch.cuda.synchronize()
+        launches = mode_delta(before)
+        pairs = len(merge_idx_runs(alive)[0])
+        want = MESH_CLIENTS * MESH_SHARDS + MESH_SHARDS * pairs
+        if launches != dict(dict.fromkeys(fm.MODES, 0), double=want):
+            raise AssertionError(f"grid round {it}: launches {launches}, "
+                                 f"expected {want} double")
+        if not np.array_equal(got.cpu().numpy(),
+                              q_host[alive].sum(0) % (1 << INT_BITS)):
+            raise AssertionError(f"grid round {it}: decrypt != sum(q) mod "
+                                 f"2^{INT_BITS}")
+        ciphers = flashe_clients(dev, MESH_CLIENTS, it)
+        cts = [ciphers[i].encrypt(q[i]) for i in range(MESH_CLIENTS)]
+        # every cell's ciphertext is its slice of the client's
+        # single-device one: the shard's counters start at its offset
+        ns = n // MESH_SHARDS
+        for i in range(MESH_CLIENTS):
+            for s in range(MESH_SHARDS):
+                part = slice(s * ns, (s + 1) * ns)
+                if not torch.equal(encrypt_shard(rk, q[i, part], it, i, s,
+                                                 INT_BITS), cts[i][part]):
+                    raise AssertionError(
+                        f"grid round {it}: client {i} shard {s}'s "
+                        f"ciphertext differs from FlasheCipher.encrypt's")
+        agg = arbiter_reduce([cts[i] for i in alive], INT_BITS)
+        if not torch.equal(got, ciphers[0].decrypt(agg, alive)):
+            raise AssertionError(f"grid round {it}: decrypt differs from "
+                                 f"the single-device FlasheCipher round")
+        ms = []
+        for _ in range(MESH_ROUND_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            encrypted_aggregate(mesh, rk, q, it, INT_BITS, MESH_CLIENTS,
+                                survivors)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        rounds.append(dict(survivors=len(alive), launches=want,
+                           ms=statistics.median(ms), samples=ms))
+    return dict(lanes=n, rounds=rounds)
+
+
+def run_sharded_party(dev):
+    """(b) FlasheCipher.set_local_devices(PARTY_SHARDS, [dev] * 4): 10
+    clients' dense double and single masks at FemnistCNN's width, and the
+    path-S sparse decrypt (N_COMPACT locations a client, 10 survivors)
+    through sparse_decrypt_fanout, each bit for bit the unsharded
+    cipher's and every decrypt the (densified) sum of q; the sharded
+    launches by mode."""
+    gen = torch.Generator(dev).manual_seed(SEED + 17)
+    q = torch.randint(0, 1 << ELEMENT_BITS, (N_CLIENTS, N_FEMNIST),
+                      generator=gen, device=dev, dtype=torch.int32)
+    want = q.long().sum(0) % (1 << INT_BITS)
+    launched = dict.fromkeys(fm.MODES, 0)
+    alive = list(range(N_CLIENTS))
+    for mask in ("double", "single"):
+        sharded = flashe_clients(dev, N_CLIENTS, 3, mask, PARTY_SHARDS)
+        single = flashe_clients(dev, N_CLIENTS, 3, mask)
+        cts = []
+        for i in alive:
+            before = dict(fm.mode_launches)
+            ct = sharded[i].encrypt(q[i])
+            for k, v in mode_delta(before).items():
+                launched[k] += v
+            if not torch.equal(ct, single[i].encrypt(q[i])):
+                raise AssertionError(f"sharded {mask} encrypt of client {i} "
+                                     f"differs from the unsharded one")
+            cts.append(ct)
+        agg = arbiter_reduce(cts, INT_BITS)
+        before = dict(fm.mode_launches)
+        dec = sharded[0].decrypt(agg, alive)
+        for k, v in mode_delta(before).items():
+            launched[k] += v
+        if not (torch.equal(dec, single[0].decrypt(agg, alive))
+                and torch.equal(dec.long(), want)):
+            raise AssertionError(f"sharded {mask} decrypt differs from the "
+                                 f"unsharded one or from sum(q)")
+    # path S: each client single-masks its compact vector (counters from
+    # 0); the arbiter scatters the uploads to their locations
+    rng = np.random.RandomState(SEED + 18)
+    locs = [np.sort(rng.choice(N_FEMNIST, N_COMPACT, replace=False))
+            for _ in alive]
+    compact = torch.randint(0, 1 << ELEMENT_BITS, (N_CLIENTS, N_COMPACT),
+                            generator=gen, device=dev, dtype=torch.int32)
+    clients = flashe_clients(dev, N_CLIENTS, 4, "single")
+    dense = torch.zeros(N_FEMNIST, dtype=torch.int64, device=dev)
+    plain = torch.zeros(N_FEMNIST, dtype=torch.int64, device=dev)
+    for i in alive:
+        loc = torch.from_numpy(locs[i]).to(dev)
+        dense.index_add_(0, loc, lanes.as_u32(clients[i].encrypt(compact[i])))
+        plain.index_add_(0, loc, compact[i].long())
+    dense = lanes.to_i32(dense % (1 << INT_BITS))
+    sharded = flashe_clients(dev, N_CLIENTS, 4, "single", PARTY_SHARDS)[0]
+    single = flashe_clients(dev, N_CLIENTS, 4, "single")[0]
+    for c in (sharded, single):
+        c.set_masks(locs, N_FEMNIST)
+    before = dict(fm.mode_launches)
+    dec = sharded.decrypt(dense, alive)
+    sparse = mode_delta(before)
+    for k, v in sparse.items():
+        launched[k] += v
+    if sparse["scatter"] != N_CLIENTS:
+        raise AssertionError(f"sparse fan-out launches {sparse}")
+    if not (torch.equal(dec, single.decrypt(dense, alive))
+            and torch.equal(dec.long(), plain % (1 << INT_BITS))):
+        raise AssertionError("the sparse decrypt fanned out by client "
+                             "differs from the unsharded one or the sum")
+    return launched
+
+
+def run_fanout_he(dev, keypair):
+    """(c) DeviceFanout over [dev] * FAN_SHARDS: Paillier under the
+    phase's 2048-bit key, FAN_ROWS values encrypted fanned, decrypted
+    fanned and unfanned, equal to each other, to python pow and to the
+    values; BFV and CKKS at full width, 10 clients encrypting fanned,
+    the arbiter's sum, the guest's fanned decrypt exact (BFV, mod t) or
+    within CKKS_ATOL of the float64 sum.  Returns the Montgomery launches
+    a chunk."""
+    pub, priv = keypair
+    one, fan = PaillierCipher(device=dev), PaillierCipher(device=dev)
+    for c in (one, fan):
+        c.set_public_key(pub)
+        c.set_privacy_key(priv)
+    fan.set_local_devices(FAN_SHARDS, [dev] * FAN_SHARDS)
+    rng = random.Random(SEED)
+    vals = [rng.getrandbits(PAILLIER_BITS) for _ in range(FAN_ROWS)]
+    for k in mg.launches:
+        mg.launches[k] = 0
+    cts = fan.encrypt(vals)
+    enc = dict(mg.launches)
+    got = fan.decrypt(cts)
+    dec = {k: mg.launches[k] - enc[k] for k in mg.launches}
+    total = dict(mg.launches)
+    if not (list(got) == list(one.decrypt(cts)) == vals
+            == [priv.decrypt_scalar(int(c)) for c in cts]):
+        raise AssertionError("Paillier: the fanned decrypt differs from "
+                             "the unfanned one, python pow or the values")
+    if (enc != {"mont_mul": FAN_SHARDS * PAILLIER_ENC_MULS, "mont_mul_vec": 0,
+                "mont_exp_rows": 0}
+            or dec != {"mont_mul": 0, "mont_mul_vec": 0,
+                       "mont_exp_rows": FAN_SHARDS}):
+        raise AssertionError(f"Paillier fan-out launches: encrypt {enc}, "
+                             f"decrypt {dec}")
+    he = {}
+    gen = torch.Generator(dev).manual_seed(SEED + 19)
+    q = torch.randint(0, 1 << ELEMENT_BITS, (N_CLIENTS, N_FEMNIST),
+                      generator=gen, device=dev, dtype=torch.int32)
+    x = torch.randn((N_CLIENTS, N_FEMNIST), generator=gen, device=dev,
+                    dtype=torch.float32)
+    for name, make, values in (
+            ("BFV", lambda seed=None: BFVCipher(HE_T, HE_M, flagBatching=True,
+                                                seed=seed, device=dev), q),
+            ("CKKS", lambda seed=None: CKKSCipher(HE_M, seed=seed,
+                                                  device=dev), x)):
+        t0 = time.perf_counter()
+        clients = _he_ciphers(make, make(SEED).generate_keys(), N_CLIENTS)
+        for c in clients:
+            c.set_local_devices(FAN_SHARDS, [dev] * FAN_SHARDS)
+        ups = [c.encrypt(v) for c, v in zip(clients, values)]
+        agg = make().add_ciphertexts(ups)
+        got = clients[0].decrypt(agg, N_FEMNIST)
+        torch.cuda.synchronize()
+        if name == "BFV":
+            err = int((got.long() - q.long().sum(0) % HE_T).abs().max())
+        else:
+            err = float((got - x.double().sum(0)).abs().max())
+        if not (isinstance(ups[0], np.ndarray) and err <= (
+                0 if name == "BFV" else CKKS_ATOL)):
+            raise AssertionError(f"{name} fanned: {type(ups[0])}, decrypt "
+                                 f"off the sum by {err}")
+        he[name] = dict(err=err, cts=ups[0].shape[0],
+                        secs=time.perf_counter() - t0)
+    return dict(enc=enc, dec=dec, total=total, he=he)
+
+
+def parse_ok(out: str) -> dict:
+    """The multi-process child's OK line as a dict."""
+    line = next(l for l in out.splitlines() if l.startswith("OK "))
+    fields = dict(kv.split("=", 1) for kv in line.split()[1:]
+                  if "=" in kv and not kv.startswith("mesh="))
+    fields["launches"] = json.loads(fields["launches"])
+    return fields
+
+
+def run_multihost(dev, n_proc):
+    """(d) launch_local of parallel/_multihost_child.py at FemnistCNN's
+    width, n_proc processes on the card (gloo where they share it, NCCL for
+    one): every process checks both rounds against the plain sum, all
+    print the same digests, equal to the in-process grid's on the same q,
+    each process launches 2 encrypts + 2 decrypt pairs."""
+    child = str(ROOT / "flashe_tpu_torch" / "parallel" /
+                "_multihost_child.py")
+    devices, backend = multihost.placement(n_proc, 1, dev.type)
+    t0 = time.perf_counter()
+    outs = multihost.launch_local(n_proc, 1, child,
+                                  ["--elements", str(N_FEMNIST)],
+                                  timeout=300, device=dev.type)
+    secs = time.perf_counter() - t0
+    rows = [parse_ok(o) for o in outs]
+    n = padded_lane_count(N_FEMNIST, INT_BITS, 1)
+    q = np.random.RandomState(0).randint(0, 1 << 16, (n_proc, n))
+    qt = torch.from_numpy(q.astype(np.int32)).to(dev)
+    mesh = make_mesh(n_proc, 1, [dev] * n_proc)
+    rk = torch.from_numpy(aes.key_schedule(bytes(range(32))).astype(
+        np.int32)).to(dev)
+    survivors = tuple(range(n_proc - 1)) if n_proc > 1 else (0,)
+    want = [hashlib.sha256(encrypted_aggregate(
+        mesh, rk, qt, it, INT_BITS, n_proc, surv).cpu().numpy()
+        .tobytes()).hexdigest()[:16]
+        for it, surv in ((0, None), (1, survivors))]
+    for pid, r in enumerate(rows):
+        if (r["backend"] != backend or r["devices"] != devices[pid][0]
+                or [r["digest0"], r["digest1"]] != want
+                or r["launches"]["double"] != 4
+                or sum(r["launches"].values()) != 4):
+            raise AssertionError(f"multihost process {pid} of {n_proc}: "
+                                 f"{r}, expected backend {backend}, "
+                                 f"digests {want}, 4 double launches")
+    return dict(processes=n_proc, backend=backend, secs=secs,
+                first_round_s=[float(r["first_round_s"]) for r in rows],
+                launches=sum(r["launches"]["double"] for r in rows))
+
+
+def mesh_results(out: str) -> list:
+    """The mesh-party processes' JSON results in a shared output, where
+    their lines may run together."""
+    dec = json.JSONDecoder()
+    return [dec.raw_decode(out, m.start())[0]
+            for m in re.finditer(r'\{"loss_history"', out)]
+
+
+def plain_mesh_losses(dev, shards, rounds, learning_rate=0.05,
+                      element_bits=16):
+    """run_mesh_training's rounds on FemnistCNN in float64, with no mask
+    and no collective, and the stochastic rounding's expected value in
+    place of its draws (the JAX package's decode, protocol/aggregator.py's
+    get_aggregated_model).  Every client trains its model on its shard
+    (SGD, batches of 32, its trainer seeded by its process id) and uploads
+    degree x weights less its running layer means, clipped at ACIQ's alpha
+    from its running layer stds and scaled to element_bits; each process
+    unquantizes the sum with its own alpha, weights it by degree / total
+    degree, adds its means back, takes the new running statistics and
+    divides by its degree.  Returns each round's degree-weighted mean of
+    the processes' losses on their own shards."""
+    trainers = []
+    for pid, (x, _) in enumerate(shards):
+        mdl = build_model("femnist_cnn", device=dev)
+        init_params(mdl, x[:1], seed=0)
+        trainers.append(LocalTrainer(mdl, optimizer="sgd",
+                                     learning_rate=learning_rate, seed=pid,
+                                     device=dev))
+    n = len(shards)
+    degrees = [float(len(x)) for x, _ in shards]
+    total = sum(degrees)
+    half_range = ((1 << element_bits) - 1) / 2.0
+    aciq = ACIQ(element_bits)
+
+    def alpha(std):
+        return aciq.get_alpha_gaus_direct(std) or 0.1
+
+    keys = list(trainers[0].params)
+    means = [dict.fromkeys(keys, 0.0) for _ in shards]
+    stds = [dict.fromkeys(keys, 1.0) for _ in shards]
+    losses = []
+    for _ in range(rounds):
+        ws = []
+        for t, (x, y) in zip(trainers, shards):
+            t.train(x, y.astype(np.int64), batch_size=min(32, len(x)))
+            ws.append({k: v.double() for k, v in t.params.items()})
+        qsum = {k: sum((torch.clamp(degrees[i] * ws[i][k] - means[i][k],
+                                    -alpha(stds[i][k]), alpha(stds[i][k]))
+                        + alpha(stds[i][k])) * half_range / alpha(stds[i][k])
+                       for i in range(n)) for k in keys}
+        for p, t in enumerate(trainers):
+            new = {}
+            for k in keys:
+                a = alpha(stds[p][k]) * n
+                agg = qsum[k] * 2.0 * a / (2.0 * half_range * n) - a
+                agg = agg * degrees[p] / total + means[p][k]
+                means[p][k] = float(agg.mean())
+                stds[p][k] = float(agg.std(unbiased=False))
+                new[k] = (agg / degrees[p]).float()
+            t.set_model_weights(new)
+        losses.append(sum(d * t.evaluate(x, y.astype(np.int64))[0]
+                          for d, t, (x, y) in zip(degrees, trainers, shards))
+                      / total)
+    return losses
+
+
+def run_mesh_party(dev, root: Path, env, tf32):
+    """(e) `cluster --run-local` of a MESH_HOSTS-host mesh conf: FemnistCNN,
+    MESH_ROUNDS rounds, each host a .npz shard of the port's synthetic
+    FEMNIST data; every process on the card, the same model digest,
+    finite losses that fall and lie within MESH_LOSS_ATOL of
+    plain_mesh_losses on the same shards (run here under the processes'
+    TF32 settings, torch's own `tf32`), 2 launches (an encrypt and a
+    decrypt pair) a round."""
+    hosts = []
+    shards = federated_dataset("femnist", MESH_HOSTS, MESH_SAMPLES, seed=SEED)
+    for i, (x, y) in enumerate(shards):
+        path = root / f"mesh_shard{i}.npz"
+        np.savez(path, x=x, y=y)
+        hosts.append({"host": "127.0.0.1", "data": str(path)})
+    conf = root / "mesh_conf.json"
+    conf.write_text(json.dumps({"mesh": {
+        "hosts": hosts, "rounds": MESH_ROUNDS, "model": "femnist_cnn"},
+        "python": sys.executable}))
+    out, secs = run_cli_text(["cluster", "-c", str(conf), "--run-local",
+                              "--timeout", "300"]
+                             + ["--cpu"] * (dev.type == "cpu"), env)
+    rcs = json.loads(out.strip().splitlines()[-1])
+    results = mesh_results(out)
+    _, backend = multihost.placement(MESH_HOSTS, 1, dev.type)
+    if (rcs != {f"mesh_{i}": 0 for i in range(MESH_HOSTS)}
+            or sorted(r["process_id"] for r in results)
+            != list(range(MESH_HOSTS))
+            or len({r["model_digest"] for r in results}) != 1
+            or any(not r["device"].startswith(dev.type)
+                   or r["backend"] != backend
+                   or len(r["loss_history"]) != MESH_ROUNDS
+                   or not np.all(np.isfinite(r["loss_history"]))
+                   or r["launches"]["double"] != 2 * MESH_ROUNDS
+                   for r in results)):
+        raise AssertionError(f"mesh conf --run-local: {rcs}, {results}")
+    losses = results[0]["loss_history"]
+    if any(r["loss_history"] != losses for r in results) or not (
+            losses[-1] < losses[0]):
+        raise AssertionError(f"mesh conf --run-local: losses "
+                             f"{[r['loss_history'] for r in results]}, "
+                             f"expected one history that falls")
+    with submit_tf32(tf32):
+        want = plain_mesh_losses(dev, shards, MESH_ROUNDS)
+    err = max(abs(a - b) for a, b in zip(losses, want))
+    if err > MESH_LOSS_ATOL:
+        raise AssertionError(f"mesh conf --run-local: losses {losses}, the "
+                             f"plain rounds' {want}")
+    return dict(secs=secs, backend=backend, losses=losses, want=want,
+                err=err, digest=results[0]["model_digest"][:16],
+                launches=sum(r["launches"]["double"] for r in results))
+
+
+def run_multi_gpu_phase(dev, keypair, tf32):
+    """Phase 16; returns what the kernels' line and the summary need."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_launches()
+    for k in mg.launches:
+        mg.launches[k] = 0
+    t0 = time.perf_counter()
+    grid = run_mesh_round(dev)
+    for r in grid["rounds"]:
+        print(f"phase 16 (a): encrypted_aggregate on a {MESH_CLIENTS} x "
+              f"{MESH_SHARDS} grid of {dev}, {grid['lanes']} lanes, "
+              f"survivors {r['survivors']}/{MESH_CLIENTS}: decrypt == sum(q) "
+              f"mod 2^{INT_BITS} == the single-device FlasheCipher round, "
+              f"bit for bit, every cell's ciphertext its slice of the "
+              f"client's FlasheCipher.encrypt; launches {r['launches']} double a round "
+              f"({MESH_CLIENTS * MESH_SHARDS} encrypts + {MESH_SHARDS} x "
+              f"{(r['launches'] - MESH_CLIENTS * MESH_SHARDS) // MESH_SHARDS}"
+              f" decrypt pairs); {r['ms']:.3f} ms a round (median of "
+              f"{MESH_ROUND_REPS}, host clock to a synchronize; samples "
+              f"{[round(v, 3) for v in r['samples']]})")
+    party = run_sharded_party(dev)
+    print(f"phase 16 (b): FlasheCipher.set_local_devices({PARTY_SHARDS}, "
+          f"[{dev}] x {PARTY_SHARDS}): the dense double and single masks of "
+          f"{N_CLIENTS} clients at {N_FEMNIST} lanes and the path-S sparse "
+          f"decrypt ({N_CLIENTS} survivors x {N_COMPACT} locations, "
+          f"sparse_decrypt_fanout) bit for bit the unsharded cipher's; the "
+          f"sharded launches {party}")
+    fan = run_fanout_he(dev, keypair)
+    print(f"phase 16 (c): DeviceFanout over [{dev}] x {FAN_SHARDS}: "
+          f"Paillier (2048-bit key) {FAN_ROWS} values encrypted and "
+          f"decrypted fanned == unfanned == python pow; launches a chunk: "
+          f"encrypt {fan['enc']['mont_mul'] // FAN_SHARDS} mont_mul, decrypt "
+          f"{fan['dec']['mont_exp_rows'] // FAN_SHARDS} mont_exp_rows; "
+          + "; ".join(f"{k} {v['cts']} ciphertexts a client, 10 clients "
+                      f"fanned, decrypt off the sum by {v['err']:.3g} "
+                      f"({v['secs']:.2f} s)" for k, v in fan["he"].items()))
+    in_process = dict(fm.mode_launches)
+    in_process_mont = dict(mg.launches)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_multi_gpu_"))
+    try:
+        # the process groups of (d) and (e) start together: each is mostly
+        # its processes' start, on the host's cores
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
+            groups = [pool.submit(run_multihost, dev, n)
+                      for n in (MULTIHOST_PROCS, 1)]
+            party = pool.submit(run_mesh_party, dev, root, runtime_env(root),
+                                tf32)
+            hosts = [g.result() for g in groups]
+            mesh = party.result()
+        for r in hosts:
+            print(f"phase 16 (d): launch_local of _multihost_child.py, "
+                  f"{r['processes']} process(es) on {dev}, backend "
+                  f"{r['backend']}, {N_FEMNIST} elements: both rounds == the "
+                  f"plain sum in every process, digests == the in-process "
+                  f"grid's; {r['launches']} double launches; first round "
+                  f"{[round(v, 3) for v in r['first_round_s']]} s; "
+                  f"{r['secs']:.2f} s with the processes' start, beside "
+                  f"(e)'s and the other group's")
+        print(f"phase 16 (e): cluster --run-local of a {MESH_HOSTS}-host mesh "
+              f"conf (femnist_cnn, {MESH_ROUNDS} rounds, {MESH_SAMPLES} "
+              f"samples a host, backend {mesh['backend']} on {dev}): one model"
+              f" digest {mesh['digest']}, losses {mesh['losses']} falling, "
+              f"within {mesh['err']:.2e} of the plain float64 rounds' "
+              f"{mesh['want']} (limit {MESH_LOSS_ATOL:g}); {mesh['launches']} "
+              f"double launches; {mesh['secs']:.2f} s, beside (d)'s groups")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    before = dict(fm.mode_launches)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        graft.dryrun_multichip(GRAFT_DEVICES, devices=[dev] * GRAFT_DEVICES)
+    dry = mode_delta(before)
+    if (not buf.getvalue().startswith(
+            "dryrun_multichip ok: mesh={'clients': 4, 'lanes': 2} "
+            "model=FemnistCNN params=1206590")
+            or dry["double"] != 2 * (8 + 2)):
+        raise AssertionError(f"dryrun_multichip: {buf.getvalue()!r}, "
+                             f"launches {dry}")
+    print(f"phase 16 (f): graft.dryrun_multichip({GRAFT_DEVICES}, [{dev}] x "
+          f"{GRAFT_DEVICES}): {buf.getvalue().strip()}; launches {dry}")
+    for k, v in dry.items():
+        in_process[k] += v
+    launches = dict(in_process)
+    launches["double"] += (sum(r["launches"] for r in hosts)
+                           + mesh["launches"])
+    secs = time.perf_counter() - t_phase
+    print(f"phase 16: {secs:.2f} s; mask launches by mode {launches} (in "
+          f"this process {in_process}, in the children "
+          f"{launches['double'] - in_process['double']} double); Montgomery "
+          f"{in_process_mont}")
+    return dict(mask=launches, mont=in_process_mont, secs=secs)
+
+
 def mask_bound(count, card, m=INT_BITS, streams=2, sectors=None):
     """The mask kernel's bound at `count` lanes of m bits and `streams`
     mask streams: that many T-table AES-256 blocks for every 128 // m
@@ -3524,6 +4073,14 @@ def build_kernels():
     print_mask_sass()
 
 
+_T0 = time.perf_counter()
+
+
+def stamp(label: str):
+    """The script's seconds so far, after `label`."""
+    print(f"[{time.perf_counter() - _T0:.1f} s] {label} done", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--times", action="store_true", help=(
@@ -3557,6 +4114,7 @@ def main(argv=None) -> int:
     print(f"bounds from: {card.describe()}")
 
     build_kernels()
+    stamp("phase 1 (build)")
     if args.times:
         time_mask(dev, card, MASK_SMALL_COUNTS + (N_COMPACT, N_FEMNIST,
                                                   4_194_304))
@@ -3570,6 +4128,7 @@ def main(argv=None) -> int:
 
     max_err = check_kernel_grid(dev)
     mode_err = check_modes_grid(dev)
+    stamp("phases 2-3 (the mask kernel's grids)")
 
     torch.manual_seed(SEED)
     model = FemnistCNN(device=dev).eval()
@@ -3618,6 +4177,7 @@ def main(argv=None) -> int:
           "synchronize after each phase): " + ", ".join(
               f"{k} {v:.1f} ms" for k, v in phases.items())
           + f"; the round {sum(phases.values()):.1f} ms")
+    stamp("phases 4-5 (the rounds)")
 
     # the full round's new global model runs: finite logits that agree
     # with the same model on the CPU
@@ -3687,6 +4247,7 @@ def main(argv=None) -> int:
     print("full round by phase (medians of 7 rounds, host clock, a "
           "synchronize around each phase): " + ", ".join(
               f"{k} {v:.3f} ms" for k, v in phases.items()))
+    stamp("phase 9 (the mask kernel's times)")
 
     # the Paillier path: its kernels on their grids, then the round
     t0 = time.perf_counter()
@@ -3715,6 +4276,7 @@ def main(argv=None) -> int:
     small_launches = check_small_decrypt(dev, keypair, r)
     print(f"5-row decrypt: launches {small_launches} (single per-row-modulus"
           f" products), equal to the full decrypt's first 5")
+    stamp("phases 6-7 (Montgomery, the Paillier round)")
 
     # the federated rounds: the roles of protocol/aggregator.py over the
     # in-memory federation (one thread each) and over TCP (one process each)
@@ -3772,19 +4334,24 @@ def main(argv=None) -> int:
               for role in ("guest", "host", "arbiter")
               for name, row in tcp[role]["stats"].items()
               if name != "__total__" and row["sent_bytes"] > 100_000))
+    stamp("phase 8 (the federated rounds)")
 
     # federated training: the HomoNN roles through run_roles, as submit
     train_launches, in_process = run_training_phase(dev, tf32)
+    stamp("phase 10 (training)")
     # the job runtime: the same configuration one process a party, predict,
     # a DSL job; the parent's predict runs with submit's TF32 settings; then
     # the job server and the cluster over the same stores
     with submit_tf32(tf32):
         runtime_launches = run_runtime_phase(dev, in_process, smi)
+    stamp("phases 12-13 (the job runtime, the server, the cluster)")
     # the general-HE baselines, at full width and in training
     he_rows = run_he_phase(dev, model, card, tf32)
+    stamp("phase 11 (general HE)")
     # the scheme comparison, a process of its own on the card; then the
     # table data plane on the host
     comparison, compare_s = run_comparison_phase(smi)
+    stamp("phase 14 (the comparison)")
     cmp_launches = collections.Counter()
     for row in comparison["rows"]:
         cmp_launches.update(row["launches"])
@@ -3793,6 +4360,7 @@ def main(argv=None) -> int:
           f"row correct, the wire MB a client as docs/COMPARISON.md, "
           f"launches {dict(cmp_launches)}")
     tables = run_data_plane_phase()
+    stamp("phase 15 (the data plane)")
     print(f"phase 15: the table data plane: storage-node ran the "
           f"{tables['server']} server (csrc/kvserver.cpp), the local store "
           f"{tables['local_store']} (csrc/kvstore.cpp), jobs shipped with "
@@ -3807,11 +4375,18 @@ def main(argv=None) -> int:
           f"the facade {tables['facade_s']:.2f} s, the phase "
           f"{tables['secs']:.2f} s (host clock)")
 
+    # several devices on the card: the grid round, the sharded party, the
+    # fan-out, processes over torch.distributed, the mesh party, the graft
+    # twin
+    multi = run_multi_gpu_phase(dev, keypair, tf32)
+    stamp("phase 16 (several devices)")
+
     def trained(key):
         return sum(launches[key] for launches in train_launches.values())
 
     paths = time_paths(dev, keypair, card)
     mont_times, rate = time_montgomery(dev, keypair)
+    stamp("phase 9 (the Montgomery kernels' times)")
     # the 2,048-row plain time stands in for mont_exp_rows', whose plain
     # version would take hours at the decrypt's shape
     paths["mont_exp_rows"].update(
@@ -3856,6 +4431,7 @@ def main(argv=None) -> int:
         "launches_server": runtime_launches["server"],
         "launches_cluster": runtime_launches["cluster"],
         "launches_comparison": cmp_launches["mask double"],
+        "launches_multi_gpu": multi["mask"]["double"],
         "max_abs_err": max_err,
         "ms": times[N_FEMNIST][0],
         "host_calls_ms": times[N_FEMNIST][2],
@@ -3875,6 +4451,9 @@ def main(argv=None) -> int:
         "launches_per_round": launched,
         "launches_federated": sparse_fed_launches[err_key],
         "launches_training": trained(err_key),
+        # phase 16's sparse decrypt is path S's: every scatter is single
+        "launches_multi_gpu": (0 if name == "scatter double"
+                               else multi["mask"][err_key]),
         "max_abs_err": mode_err[err_key],
         "ms": mode_times[name]["ms"],
         "host_calls_ms": mode_times[name]["host_calls_ms"],
@@ -3893,6 +4472,7 @@ def main(argv=None) -> int:
         "launches_federated": pl_fed_launches[name],
         "launches_training": trained(name),
         "launches_comparison": cmp_launches[name],
+        "launches_multi_gpu": multi["mont"][name],
         "max_abs_err": mont_err[name],
         "ms": paths[name]["ms"],
         "plain_ms": paths[name]["plain_ms"],

@@ -40,7 +40,9 @@ runs it on this machine.  `storage-node` runs a persistent storage node
 (data/remote_kv.py: the native C++ server of csrc/kvserver.cpp, or the
 python one with --python), which sessions bind with
 `data.table.init(storage_addr=...)`; it is host code and touches no card.
-`mesh-party` raises NotImplementedError naming its ROADMAP.md item.
+`mesh-party` runs one client of the SPMD mesh federation
+(parallel/mesh_party.py) in a torch.distributed group; `cluster --run-local`
+of a mesh conf starts one a host on the local machine.
 """
 
 from __future__ import annotations
@@ -49,11 +51,6 @@ import argparse
 import json
 import os
 import sys
-
-_UNPORTED = {
-    "mesh-party": "item 5: multi-GPU",
-}
-
 
 def _client(args):
     """The job server's client where the command was given --server, else
@@ -665,9 +662,22 @@ def cmd_storage_node(args) -> int:
     return 0
 
 
-def cmd_unported(args) -> int:
-    raise NotImplementedError(f"{args.cmd} is not ported yet (ROADMAP.md, "
-                              f"queue 1, {_UNPORTED[args.cmd]})")
+def cmd_mesh_party(args) -> int:
+    """One client process of an SPMD mesh federation
+    (parallel/mesh_party.py; run one per host): on --device (the card by
+    default) or the CPU with --cpu, in a group of --backend (NCCL on a
+    card, gloo on the CPU, by default)."""
+    from flashe_tpu_torch.parallel.mesh_party import run_mesh_training
+
+    out = run_mesh_training(
+        args.coordinator, args.num_processes, args.process_id,
+        model=args.model, model_kwargs=json.loads(args.model_kwargs),
+        rounds=args.rounds, samples=args.samples, data=args.data,
+        learning_rate=args.learning_rate, int_bits=args.int_bits,
+        verbose=args.verbose, device="cpu" if args.cpu else args.device,
+        backend=args.backend)
+    print(json.dumps(out))
+    return 0
 
 
 def main(argv=None) -> int:
@@ -868,9 +878,29 @@ def main(argv=None) -> int:
                    help="force the pure-Python server instead of the native "
                         "C++ one")
 
-    for name, item in _UNPORTED.items():
-        p = command(name, cmd_unported, f"not ported yet ({item})")
-        p.add_argument("rest", nargs=argparse.REMAINDER)
+    p = command("mesh-party", cmd_mesh_party,
+                "join an SPMD mesh federation as one client process "
+                "(torch.distributed)")
+    p.add_argument("--coordinator", required=True,
+                   help="host:port of process 0")
+    p.add_argument("--num-processes", type=int, required=True)
+    p.add_argument("--process-id", type=int, required=True)
+    p.add_argument("--rounds", type=int, default=5)
+    p.add_argument("--model", default="mlp")
+    p.add_argument("--model-kwargs", default="{}")
+    p.add_argument("--samples", type=int, default=256,
+                   help="synthetic samples when no --data shard is given")
+    p.add_argument("--data", help="this process's private shard (.npz with "
+                                  "x, y)")
+    p.add_argument("--learning-rate", type=float, default=0.05)
+    p.add_argument("--int-bits", type=int, default=20)
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--device", default="cuda",
+                   help="this process's card (default: the current one)")
+    p.add_argument("--backend", choices=("nccl", "gloo"),
+                   help="the process group's backend (default: nccl on a "
+                        "card, gloo on the CPU; gloo where processes share "
+                        "a card)")
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -22,6 +22,13 @@ Decryption rounds t [c0 + c1 s] / q without big integers (`_round_crt`):
 with c_i = |v_i inv_i|_{p_i}, the result is sum_i floor(c_i t / p_i) plus
 the rounded float64 sum of the fractions, mod t; on the card this runs
 where the intt left its residues.
+
+`set_local_devices` fans the ciphertext batch over several devices
+(parallel/fanout.DeviceFanout), as the JAX package does: encrypt draws each
+chunk's noise from a torch.Generator of its own, seeded from the cipher's
+(so the ciphertexts differ from the unfanned ones, as the JAX package's
+do), and the decrypts take each chunk's c0 + c1 s on its device.  A
+device other than the cipher's gets an RNS context of its own.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import math
 import numpy as np
 import torch
 
-from flashe_tpu_torch.device import resolve_device
+from flashe_tpu_torch.device import resolve_device, same_device
 from flashe_tpu_torch.ops import ntt as nttmod
 from flashe_tpu_torch.ops.ntt import residues
 
@@ -91,11 +98,19 @@ class BFVCipher:
         self._crt_inv = torch.tensor(
             [pow((self.q // p) % p, -1, p) for p in primes],
             dtype=torch.int64, device=self.device)[:, None]
+        self._fanout = None
+        self._rings: dict = {}  # device -> the RNS context there
 
     def set_local_devices(self, n_shards=None, devices=None):
-        raise NotImplementedError(
-            "sharding a party's ciphertexts over local devices is not ported "
-            "yet (ROADMAP.md, queue 1, item 5)")
+        """Fan this party's ciphertext batch over several devices (the
+        reference's per-silo per-ciphertext Pool, jzf_bfv.py:116-173),
+        every visible card by default: encrypt and decrypt split a batch
+        of at least 2 x n_shards rows into one chunk a device.  A 1-device
+        fan-out disables the route."""
+        self._fanout = fanout_for(n_shards, devices)
+
+    def _fanned(self, rows: int) -> bool:
+        return self._fanout is not None and rows >= 2 * self._fanout.n_shards
 
     # -- keys (the guest makes them; hosts receive the secret AES-wrapped) -
 
@@ -146,29 +161,44 @@ class BFVCipher:
         x = residues(coeffs, self.device)[..., None, :]
         return nttmod.ntt(self.slot_ctx, x)[..., 0, :]
 
-    def draw_noise(self, B: int):
-        """(u, e1, e2), each (B, N) int64, from the cipher's generator."""
-        shape, g, d = (B, self.N), self._gen, self.device
+    def draw_noise(self, B: int, generator=None):
+        """(u, e1, e2), each (B, N) int64, from `generator` on its device
+        (the cipher's generator by default)."""
+        g = self._gen if generator is None else generator
+        shape, d = (B, self.N), g.device
         return (torch.randint(-1, 2, shape, generator=g, device=d),
                 centered_noise(shape, g, d), centered_noise(shape, g, d))
 
-    def encrypt_polys(self, pt_coeffs, noise=None) -> torch.Tensor:
+    def encrypt_polys(self, pt_coeffs, noise=None):
         """(B, N) plaintext coefficients mod t -> (B, 2, k, N) ciphertexts
         in the NTT domain, on the cipher's device:
             ct0 = pk0 u + e1 + delta m,   ct1 = a u + e2.
         `noise` is (u, e1, e2), each (B, N) signed integers, or None to
-        draw them.  The NTT is linear, so e1 + delta m and e2 each take
-        one transform."""
-        ctx = self.ctx
+        draw them.  Fanned out (set_local_devices, noise drawn), each chunk
+        draws from its own generator and the batch returns as host int32
+        numpy, as the JAX package's fan-out returns it."""
         pt = torch.as_tensor(pt_coeffs, device=self.device).long()
         B = pt.shape[0]
-        u, e1, e2 = noise if noise is not None else self.draw_noise(B)
+        if noise is None and self._fanned(B):
+            gens = self._fanout.generators(self._gen)
+            return self._fanout.run(lambda i, chunk: self._encrypt_on(
+                chunk, self.draw_noise(chunk.shape[0], gens[i])), pt)
+        return self._encrypt_on(pt, noise if noise is not None
+                                else self.draw_noise(B))
+
+    def _encrypt_on(self, pt, noise) -> torch.Tensor:
+        """encrypt_polys on pt's device.  The NTT is linear, so e1 +
+        delta m and e2 each take one transform."""
+        dev = pt.device
+        ctx = ring_on(self, dev)
+        pk0, pk1 = (x.to(dev) for x in self.pk)
+        u, e1, e2 = (torch.as_tensor(x).to(dev) for x in noise)
         u_ntt = nttmod.ntt(ctx, ctx.from_signed(u))
-        dm = pt[:, None, :] % ctx.p * self._delta_res % ctx.p
+        dm = pt[:, None, :] % ctx.p * self._delta_res.to(dev) % ctx.p
         ct0 = nttmod.ntt(ctx, ctx.add(dm, ctx.from_signed(e1)))
-        ct0 = ctx.add(ctx.mul(self.pk[0], u_ntt), ct0)
+        ct0 = ctx.add(ctx.mul(pk0, u_ntt), ct0)
         ct1 = nttmod.ntt(ctx, ctx.from_signed(e2))
-        ct1 = ctx.add(ctx.mul(self.pk[1], u_ntt), ct1)
+        ct1 = ctx.add(ctx.mul(pk1, u_ntt), ct1)
         return torch.stack([ct0, ct1], dim=1)
 
     def encrypt(self, values) -> torch.Tensor:
@@ -190,12 +220,22 @@ class BFVCipher:
 
     # -- decrypt -----------------------------------------------------------
 
-    def _phase(self, cts) -> torch.Tensor:
-        """c0 + c1 s, back in the coefficient domain: (B, k, N)."""
-        ctx = self.ctx
+    def _phase(self, cts, coeffs=None) -> torch.Tensor:
+        """c0 + c1 s, back in the coefficient domain: (B, k, N), or its
+        first `coeffs` coefficients (B, k, coeffs).  Fanned out, each chunk
+        on its device, gathered to the cipher's."""
         cts = residues(cts, self.device)
-        return nttmod.intt(ctx, ctx.add(cts[:, 0],
-                                        ctx.mul(cts[:, 1], self.sk_ntt)))
+        if self._fanned(cts.shape[0]):
+            return residues(self._fanout.run(
+                lambda i, chunk: self._phase_on(chunk, coeffs), cts),
+                self.device)
+        return self._phase_on(cts, coeffs)
+
+    def _phase_on(self, cts, coeffs=None) -> torch.Tensor:
+        ctx = ring_on(self, cts.device)
+        v = nttmod.intt(ctx, ctx.add(cts[:, 0], ctx.mul(
+            cts[:, 1], self.sk_ntt.to(cts.device))))
+        return v if coeffs is None else v[:, :, :coeffs]
 
     def decrypt_polys(self, cts) -> torch.Tensor:
         """(B, 2, k, N) -> (B, N) plaintext coefficients mod t, int64."""
@@ -220,7 +260,7 @@ class BFVCipher:
             pt = self.decrypt_polys(cts)
             return self._decode_batch(pt.int()).reshape(-1)[:count]
         # no batching: only coefficient 0 of each ciphertext carries a value
-        v0 = self._phase(cts)[:, :, :1]
+        v0 = self._phase(cts, coeffs=1)
         return self._round_crt(v0)[:count, 0].int()
 
     def add_ciphertexts(self, ct_arrays) -> torch.Tensor:
@@ -239,6 +279,26 @@ class BFVCipher:
             centered = [int(x) if x < q // 2 else int(x) - q for x in noise]
             worst = max(worst, max(abs(c) for c in centered))
         return math.log2(q / (2 * t)) - math.log2(max(worst, 1))
+
+
+def fanout_for(n_shards, devices):
+    """A DeviceFanout over `devices`, or None where it has one device."""
+    from flashe_tpu_torch.parallel.fanout import DeviceFanout
+
+    f = DeviceFanout(n_shards, devices)
+    return f if f.n_shards > 1 else None
+
+
+def ring_on(cipher, device) -> nttmod.RnsContext:
+    """The cipher's RNS context on `device`: its own on its device, else a
+    copy built there once."""
+    if same_device(device, cipher.device):
+        return cipher.ctx
+    device = torch.device(device)
+    if device not in cipher._rings:
+        cipher._rings[device] = nttmod.RnsContext(cipher.N, cipher.ctx.primes,
+                                                  device)
+    return cipher._rings[device]
 
 
 def _crt_to_int(res: np.ndarray, primes, q: int) -> np.ndarray:

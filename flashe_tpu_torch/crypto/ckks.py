@@ -24,6 +24,10 @@ scale x |value|).  The products wrap in int64, two's complement, as
 torch's int64 multiply does on the CPU and on the card; the JAX package
 computes the same in uint32 pairs.  The result is float64 (the JAX
 package's is float32).
+
+`set_local_devices` fans the ciphertext batch over several devices as BFV
+does (crypto/bfv.py): each encrypt chunk draws from a generator of its
+own, and each decrypt chunk reconstructs its coefficients on its device.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from flashe_tpu_torch.crypto.bfv import add_ciphertexts, centered_noise
+from flashe_tpu_torch.crypto.bfv import (
+    add_ciphertexts, centered_noise, fanout_for, ring_on)
 from flashe_tpu_torch.device import resolve_device
 from flashe_tpu_torch.ops import ntt as nttmod
 from flashe_tpu_torch.ops.ntt import residues
@@ -87,11 +92,18 @@ class CKKSCipher:
             [_signed64(self.q // p) for p in primes], dtype=torch.int64,
             device=self.device)[:, None]
         self._q64 = _signed64(self.q)
+        self._fanout = None
+        self._rings: dict = {}  # device -> the RNS context there
 
     def set_local_devices(self, n_shards=None, devices=None):
-        raise NotImplementedError(
-            "sharding a party's ciphertexts over local devices is not ported "
-            "yet (ROADMAP.md, queue 1, item 5)")
+        """Fan this party's ciphertext batch over several devices (every
+        visible card by default): encrypt and decrypt split a batch of at
+        least 2 x n_shards rows into one chunk a device.  A 1-device
+        fan-out disables the route."""
+        self._fanout = fanout_for(n_shards, devices)
+
+    def _fanned(self, rows: int) -> bool:
+        return self._fanout is not None and rows >= 2 * self._fanout.n_shards
 
     # -- keys --------------------------------------------------------------
 
@@ -144,42 +156,67 @@ class CKKSCipher:
         return self._encrypt_polys(self._encode(self._pad(values,
                                                           self.slots)))
 
-    def draw_noise(self, B: int):
-        """(a, e): a (B, k, N) uniform mod each prime, e (B, N) int64."""
+    def draw_noise(self, B: int, generator=None):
+        """(a, e): a (B, k, N) uniform mod each prime, e (B, N) int64, from
+        `generator` on its device (the cipher's generator by default)."""
+        g = self._gen if generator is None else generator
         a = torch.stack([
-            torch.randint(0, p, (B, self.N), generator=self._gen,
-                          device=self.device, dtype=torch.int64)
+            torch.randint(0, p, (B, self.N), generator=g, device=g.device,
+                          dtype=torch.int64)
             for p in self.ctx.primes], dim=1).int()
-        return a, centered_noise((B, self.N), self._gen, self.device)
+        return a, centered_noise((B, self.N), g, g.device)
 
-    def _encrypt_polys(self, pt, noise=None) -> torch.Tensor:
+    def _encrypt_polys(self, pt, noise=None):
         """(B, N) int64 scaled coefficients -> (B, 2, k, N) ciphertexts:
             c0 = -a s + e + m,   c1 = a,   in the NTT domain.
-        `noise` is (a, e) as draw_noise gives them, or None to draw them."""
-        ctx = self.ctx
+        `noise` is (a, e) as draw_noise gives them, or None to draw them.
+        Fanned out (noise drawn), each chunk draws from its own generator
+        and the batch returns as host int32 numpy."""
+        pt = torch.as_tensor(pt, device=self.device)
+        if noise is None and self._fanned(pt.shape[0]):
+            gens = self._fanout.generators(self._gen)
+            return self._fanout.run(lambda i, chunk: self._encrypt_on(
+                chunk, self.draw_noise(chunk.shape[0], gens[i])), pt)
+        return self._encrypt_on(pt, noise if noise is not None
+                                else self.draw_noise(pt.shape[0]))
+
+    def _encrypt_on(self, pt, noise) -> torch.Tensor:
+        dev = pt.device
+        ctx = ring_on(self, dev)
         m_res = ctx.from_signed(pt)
-        a, e = noise if noise is not None else self.draw_noise(m_res.shape[0])
-        a_ntt = nttmod.ntt(ctx, residues(a, self.device))
-        em_ntt = nttmod.ntt(ctx, ctx.add(ctx.from_signed(e), m_res))
-        c0 = ctx.add(ctx.neg(ctx.mul(a_ntt, self.sk_ntt)), em_ntt)
+        a, e = noise
+        a_ntt = nttmod.ntt(ctx, residues(a, dev))
+        em_ntt = nttmod.ntt(ctx, ctx.add(ctx.from_signed(
+            torch.as_tensor(e).to(dev)), m_res))
+        c0 = ctx.add(ctx.neg(ctx.mul(a_ntt, self.sk_ntt.to(dev))), em_ntt)
         return torch.stack([c0, a_ntt], dim=1)
 
     def _decrypt_coeff(self, cts) -> torch.Tensor:
-        """(B, 2, k, N) -> (B, N) centred coefficients, float64."""
-        ctx = self.ctx
+        """(B, 2, k, N) -> (B, N) centred coefficients, float64, on the
+        cipher's device; fanned out, each chunk on its device."""
         cts = residues(cts, self.device)
-        v = nttmod.intt(ctx, ctx.add(cts[:, 0],
-                                     ctx.mul(cts[:, 1], self.sk_ntt)))
-        return self._centred(v).double()
+        if self._fanned(cts.shape[0]):
+            return torch.from_numpy(self._fanout.run(
+                lambda i, chunk: self._coeff_on(chunk), cts)).to(
+                    self.device).double()
+        return self._coeff_on(cts).double()
+
+    def _coeff_on(self, cts) -> torch.Tensor:
+        ctx = ring_on(self, cts.device)
+        v = nttmod.intt(ctx, ctx.add(cts[:, 0], ctx.mul(
+            cts[:, 1], self.sk_ntt.to(cts.device))))
+        return self._centred(v)
 
     def _centred(self, v) -> torch.Tensor:
-        """(B, k, N) residues -> (B, N) int64 centred values, exact for
-        values below 2^63 in magnitude: sum_i c_i (q / p_i) - A q mod
-        2^64, the products wrapping."""
-        p = self.ctx.p
-        c = residues(v, self.device).long() * self._crt_inv % p
+        """(B, k, N) residues -> (B, N) int64 centred values on v's device,
+        exact for values below 2^63 in magnitude: sum_i c_i (q / p_i) - A q
+        mod 2^64, the products wrapping."""
+        v = torch.as_tensor(v)
+        dev = v.device
+        p = ring_on(self, dev).p
+        c = v.long() * self._crt_inv.to(dev) % p
         A = torch.round((c.double() / p.double()).sum(dim=-2)).long()
-        return (c * self._crt_qi64).sum(dim=-2) - A * self._q64
+        return (c * self._crt_qi64.to(dev)).sum(dim=-2) - A * self._q64
 
     def decrypt(self, cts, count: int) -> torch.Tensor:
         """The first `count` slot values, float64."""

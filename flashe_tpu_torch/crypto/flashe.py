@@ -19,8 +19,12 @@ Every encrypt, every decrypt boundary pair, each single-mask survivor and
 each survivor's sparse scatter is one fused mask launch
 (flashe_tpu_torch/ops/flashe_mask.py): the CUDA kernel on the card, the
 plain torch version on the CPU.  No mask stream is ever written out, so
-there is nothing to precompute.  Local multi-device sharding is not ported
-yet and raises NotImplementedError.
+there is nothing to precompute.  `set_local_devices` splits a party's dense
+lanes over several devices (parallel/party.LocalLaneMesh, one launch a
+shard at its counter offset) and fans its sparse decrypt out by client
+(parallel/party.sparse_decrypt_fanout); both are bit-identical with the
+single-device path, and the limb path (> 32 bits) stays on one device, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -79,6 +83,7 @@ class FlasheCipher:
         # client's dense locations, int64 on self.device
         self.masks = None
         self.total = None
+        self._party_mesh = None  # parallel/party.LocalLaneMesh, or None
 
     # -- session setup -----------------------------------------------------
 
@@ -125,8 +130,25 @@ class FlasheCipher:
         return [self.idx]
 
     def set_local_devices(self, n_shards=None, devices=None):
-        raise NotImplementedError(
-            "sharding a party's lanes over local devices is not ported yet")
+        """Give this party several devices (the reference's per-party Pool,
+        jzf_flashe.py:436-447): the dense double- and single-mask encrypt
+        and decrypt split the lane vector over them, and the sparse decrypt
+        fans out by client.  `devices` defaults to every visible card; a
+        cipher on the CPU defaults to the CPU n_shards times, as the JAX
+        tests' virtual CPU devices.  A 1-device mesh disables the route."""
+        from flashe_tpu_torch.parallel.party import LocalLaneMesh
+
+        if devices is None and self.device.type == "cpu":
+            devices = [self.device] * (
+                1 if n_shards in (None, "all") else int(n_shards))
+        m = LocalLaneMesh(n_shards, devices)
+        self._party_mesh = m if m.n_shards > 1 else None
+
+    def _party_ok(self, value) -> bool:
+        return (self._party_mesh is not None
+                and self.masks is None
+                and value.dim() == 1
+                and nlimbs_for(self.int_bits) == 1)
 
     def set_masks(self, masks, total):
         """Install the sparsity location lists, one a client by idx (None
@@ -165,6 +187,14 @@ class FlasheCipher:
         (q + a_idx) mod 2^int_bits (single); one launch."""
         if self.prp_seed is None:
             return None
+        if self._party_ok(value):
+            if self.masking_scheme == "double":
+                return self._party_mesh.encrypt(
+                    self._round_keys, value, self.iter_index, self.idx,
+                    self.int_bits)
+            return self._party_mesh.encrypt_single(
+                self._round_keys, value, self.iter_index, self.idx,
+                self.int_bits)
         minus = self.idx + 1 if self.masking_scheme == "double" else None
         return mask_apply(value, self._round_keys, self.iter_index, self.idx,
                           minus, self.int_bits)
@@ -180,6 +210,15 @@ class FlasheCipher:
             idx_list = list(range(self.num_clients))
         if self.masks is not None:
             return self._decrypt_sparse(value, idx_list)
+        if self._party_ok(value):
+            if self.masking_scheme == "double":
+                adds, minuses = merge_idx_runs(idx_list)
+                return self._party_mesh.decrypt_runs(
+                    self._round_keys, value, self.iter_index, adds, minuses,
+                    self.int_bits)
+            return self._party_mesh.decrypt_single(
+                self._round_keys, value, self.iter_index, idx_list,
+                self.int_bits)
         out = value
         if self.masking_scheme == "single":
             for idx in idx_list:
@@ -199,6 +238,14 @@ class FlasheCipher:
                 "sparsified decryption requires int_bits <= 32 (batch mode "
                 "and sparsification are mutually exclusive in the reference "
                 "configs as well)")
+        if self._party_mesh is not None and len(idx_list) > 1:
+            from flashe_tpu_torch.parallel.party import sparse_decrypt_fanout
+
+            return sparse_decrypt_fanout(
+                self._party_mesh.devices, self._round_keys, value,
+                self.iter_index, [self.masks[i] for i in idx_list],
+                list(idx_list), self.int_bits,
+                self.masking_scheme == "double")
         out = value.clone()
         for i in idx_list:
             add = i + 1 if self.masking_scheme == "double" else None

@@ -13,7 +13,10 @@ python-paillier surface over crypto/fixedpoint.py that
 crypto/encrypt_mode.py drives), scalar host code on python ints that
 launches no kernel, as in the JAX package.
 
-Not ported yet: set_local_devices (several cards).
+`set_local_devices` fans a batch encrypt or decrypt over several devices
+(parallel/fanout.DeviceFanout): the rows are independent, so each
+contiguous chunk runs its modexp on its own device, against a Montgomery
+context of its own there.
 """
 
 from __future__ import annotations
@@ -23,7 +26,9 @@ import random
 import numpy as np
 
 from flashe_tpu_torch.crypto.fixedpoint import FixedPointNumber
-from flashe_tpu_torch.device import resolve_device
+import torch
+
+from flashe_tpu_torch.device import resolve_device, same_device
 from flashe_tpu_torch.ops import modmath
 
 __all__ = ["PaillierKeypair", "PaillierPublicKey", "PaillierPrivateKey",
@@ -225,6 +230,38 @@ class PaillierCipher:
         self.n = None
         self._ctx2: modmath.MontCtx | None = None
         self._ndigits = None
+        self._fanout = None
+        self._replicas: dict = {}  # (context, device) -> its copy there
+
+    def set_local_devices(self, n_shards=None, devices=None):
+        """Fan this party's batch encrypt and decrypt over several devices
+        (the reference's per-silo Pool over contiguous chunks,
+        jzf_paillier.py:190-237), every visible card by default: a batch of
+        at least 2 x n_shards rows splits into one chunk a device, each
+        launched before any is awaited.  A 1-device fan-out disables the
+        route."""
+        from flashe_tpu_torch.parallel.fanout import DeviceFanout
+
+        f = DeviceFanout(n_shards, devices)
+        self._fanout = f if f.n_shards > 1 else None
+
+    def _fanned(self, rows: int) -> bool:
+        return self._fanout is not None and rows >= 2 * self._fanout.n_shards
+
+    def _on(self, name: str, device):
+        """The Montgomery context `name` ("ctx2" or "pair") on `device`: the
+        cipher's own on its device, else a copy made there once."""
+        ctx = self._ctx2 if name == "ctx2" else self._pair_ctx
+        if same_device(device, ctx.device):
+            return ctx
+        key = (name, torch.device(device))
+        if key not in self._replicas:
+            sk = self.privacy_key
+            self._replicas[key] = (
+                modmath.MontCtx(self.public_key.nsquare, device=device)
+                if name == "ctx2" else
+                modmath.PairMontCtx(sk.psquare, sk.qsquare, device=device))
+        return self._replicas[key]
 
     # -- key management ----------------------------------------------------
 
@@ -236,11 +273,14 @@ class PaillierCipher:
     def set_public_key(self, public_key: PaillierPublicKey):
         self.public_key = public_key
         self.n = public_key.n
+        self._replicas = {}
         self._ctx2 = modmath.MontCtx(public_key.nsquare, device=self.device)
         self._ndigits = modmath.exponent_digits(self.n, self.n.bit_length())
 
     def set_privacy_key(self, privacy_key: PaillierPrivateKey):
         self.privacy_key = privacy_key
+        self._replicas = {k: v for k, v in self._replicas.items()
+                          if k[0] == "ctx2"}
         sk = privacy_key
         # both CRT exponentiations run as one per-row-modulus batch
         self._pair_ctx = modmath.PairMontCtx(sk.psquare, sk.qsquare,
@@ -268,11 +308,17 @@ class PaillierCipher:
         The device computes s = r^n mod n^2 for the whole batch; the host
         assembles c = (1 + n*m) * s mod n^2."""
         vals = [int(v) for v in np.asarray(values, dtype=object).ravel()]
-        ctx = self._ctx2
-        r = modmath.to_limbs(self._obfuscators(len(vals)), ctx.L).to(
-            self.device)
-        s = modmath.mont_to(ctx, modmath.mont_exp_window(
-            ctx, modmath.mont_from(ctx, r), self._ndigits))
+        r = modmath.to_limbs(self._obfuscators(len(vals)), self._ctx2.L)
+
+        def job(i, r_chunk):
+            ctx = self._on("ctx2", r_chunk.device)
+            return modmath.mont_to(ctx, modmath.mont_exp_window(
+                ctx, modmath.mont_from(ctx, r_chunk), self._ndigits))
+
+        if self._fanned(len(vals)):
+            s = torch.from_numpy(self._fanout.run(job, r))
+        else:
+            s = job(0, r.to(self.device))
         nsq = self.public_key.nsquare
         out = [((self.n * m + 1) % nsq) * si % nsq
                for m, si in zip(vals, modmath.from_limbs(s))]
@@ -285,9 +331,17 @@ class PaillierCipher:
         L = self._pair_ctx.L
         cp = modmath.to_limbs([c % sk.psquare for c in cts], L)
         cq = modmath.to_limbs([c % sk.qsquare for c in cts], L)
-        xp, xq = self._pair_ctx.exp_pair(cp.to(self.device),
-                                         cq.to(self.device), self._ep,
-                                         self._eq)
+
+        def job(i, cp_chunk, cq_chunk):
+            # chunks of 8 rows or more take mont_exp_rows, smaller ones the
+            # mont_mul_vec chain (PairMontCtx.exp_pair)
+            return self._on("pair", cp_chunk.device).exp_pair(
+                cp_chunk, cq_chunk, self._ep, self._eq)
+
+        if self._fanned(len(cts)):
+            xp, xq = map(torch.from_numpy, self._fanout.run(job, cp, cq))
+        else:
+            xp, xq = job(0, cp.to(self.device), cq.to(self.device))
         out = []
         for xpi, xqi in zip(modmath.from_limbs(xp), modmath.from_limbs(xq)):
             mp = sk._l(xpi, sk.p) * sk.hp % sk.p

@@ -2,13 +2,15 @@
 
 Every entry point of the port takes device="cuda" by default and resolves
 it here, so it runs on the card unless the caller asks for the CPU
-(device="cpu", as the tests do)."""
+(device="cpu", as the tests do).  The multi-device entry points
+(flashe_tpu_torch/parallel/) default to every visible card."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "resolve_devices", "visible_cards",
+           "same_device"]
 
 
 def resolve_device(device) -> torch.device:
@@ -19,3 +21,31 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(f"device {device} was asked for, but torch sees "
                            "no CUDA device")
     return device
+
+
+def visible_cards() -> list:
+    """Every CUDA device torch sees, as torch.devices; raises where there
+    is none, as resolve_device does."""
+    return [resolve_device(f"cuda:{i}")
+            for i in range(max(torch.cuda.device_count(), 1))]
+
+
+def resolve_devices(devices=None) -> list:
+    """Each of `devices` resolved (a device may repeat), or every visible
+    card where devices is None: the default of the multi-device entry
+    points."""
+    if devices is None:
+        return visible_cards()
+    return [resolve_device(d) for d in devices]
+
+
+def same_device(a, b) -> bool:
+    """True where a and b name one device ("cuda" is the current card)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or a.index == b.index:
+        return True
+    current = torch.cuda.current_device()
+    return (current if a.index is None else a.index) == (
+        current if b.index is None else b.index)

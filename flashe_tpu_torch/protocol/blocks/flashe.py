@@ -30,8 +30,10 @@ locations and decrypts on the dense path; the port's blocks broadcast them
 for every mask (`arbiter_masking`), so that the sparse double round
 decrypts.
 
-`local_lane_shards` (a party's lanes over several local cards) is not
-ported: configuring it raises, from FlasheCipher.set_local_devices.
+`local_lane_shards` gives each client's cipher that many local devices
+(FlasheCipher.set_local_devices: every visible card by default, the CPU
+repeated for a cipher on the CPU); the lane-sharded ciphertexts and
+decrypts are the single-device ones, bit for bit.
 """
 
 from __future__ import annotations
@@ -60,7 +62,7 @@ def _parse_args(args):
         "mask": args.get("mask", "double"),
         "precompute": args.get("precompute", {"enable": False}),
         # >1 (or "all"): the party shards encrypt/decrypt over that many
-        # local devices (not ported yet: set_local_devices raises)
+        # local devices (FlasheCipher.set_local_devices, parallel/party.py)
         "local_lane_shards": args.get("local_lane_shards"),
     }
 

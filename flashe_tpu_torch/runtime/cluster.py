@@ -24,9 +24,11 @@ deployment is three commands instead of a provisioning pipeline:
 A conf can also be executed entirely locally (``--run-local``) to
 validate it before touching real machines; that path doubles as the test
 for this module.  A conf is YAML (read with PyYAML, imported only for a
-.yml / .yaml file) or JSON.  A ``mesh`` conf (the JAX package's SPMD mesh
-federation) is accepted by load_cluster_conf, and planning or running it
-raises NotImplementedError: multi-GPU is ROADMAP.md, queue 1, item 5.
+.yml / .yaml file) or JSON.  A ``mesh`` conf (the SPMD mesh federation,
+parallel/mesh_party.py) plans one ``mesh-party`` process a host over a
+torch.distributed coordinator and no broker; ``--run-local`` runs them all
+on the local machine, each on a card in turn (``--backend gloo`` where more
+processes than cards share them), or on the CPU if the conf says ``cpu``.
 """
 
 from __future__ import annotations
@@ -51,10 +53,6 @@ __all__ = [
     "run_party",
     "run_local",
 ]
-
-_MESH_LATER = ("a mesh conf (SPMD mesh federation, one mesh-party a host) "
-               "is not ported yet (ROADMAP.md, queue 1, item 5: multi-GPU)")
-
 
 # --------------------------------------------------------------------------
 # party execution (the `party` CLI)
@@ -172,8 +170,8 @@ def load_cluster_conf(path: str) -> dict:
         else:
             conf = json.load(f)
     if "mesh" in conf:
-        # SPMD mesh federation: one client process per host; no broker,
-        # no roles (planning and running it raise, _MESH_LATER)
+        # SPMD mesh federation (parallel/mesh_party.py): one client
+        # process per host over torch.distributed; no broker, no roles
         mesh = conf["mesh"]
         if not mesh.get("hosts"):
             raise ValueError("mesh conf needs a non-empty hosts list")
@@ -212,7 +210,7 @@ def plan_commands(conf: dict, conf_dir: str = ".") -> Dict[str, dict]:
     deployment/server_deploy.sh copies the repo tree verbatim).
     """
     if "mesh" in conf:
-        raise NotImplementedError(_MESH_LATER)
+        return _plan_mesh_commands(conf)
     broker = conf["broker"]
     job = conf["job"]
     job_id = str(job.get("id") or uuid.uuid4().hex[:12])
@@ -251,6 +249,38 @@ def plan_commands(conf: dict, conf_dir: str = ".") -> Dict[str, dict]:
     return plan
 
 
+def _plan_mesh_commands(conf: dict) -> Dict[str, dict]:
+    """Mesh-federation plan: one `mesh-party` process per host (one
+    torch.distributed group; parallel/mesh_party.py).  Process 0's machine
+    doubles as the coordinator."""
+    mesh = conf["mesh"]
+    hosts = [h if isinstance(h, dict) else {"host": h}
+             for h in mesh["hosts"]]
+    coordinator = mesh.get("coordinator") or f"{hosts[0]['host']}:9401"
+    py = conf.get("python", "python")
+    plan: Dict[str, dict] = {}
+    for i, entry in enumerate(hosts):
+        parts = [py, "-m", "flashe_tpu_torch", "mesh-party",
+                 "--coordinator", coordinator,
+                 "--num-processes", str(len(hosts)),
+                 "--process-id", str(i),
+                 "--rounds", str(mesh.get("rounds", 5)),
+                 "--model", mesh.get("model", "mlp")]
+        if mesh.get("model_kwargs"):
+            parts += ["--model-kwargs", json.dumps(mesh["model_kwargs"])]
+        if mesh.get("learning_rate"):
+            parts += ["--learning-rate", str(mesh["learning_rate"])]
+        if entry.get("data"):
+            parts += ["--data", entry["data"]]
+        if conf.get("cpu"):
+            parts += ["--cpu"]
+        plan[f"mesh_{i}"] = {
+            "host": entry["host"],
+            "cmd": " ".join(shlex.quote(p) for p in parts),
+        }
+    return plan
+
+
 def run_local(conf: dict, conf_dir: str = ".",
               timeout: float = 900.0) -> Dict[str, int]:
     """Validate a cluster conf by executing the whole plan on this box.
@@ -261,9 +291,9 @@ def run_local(conf: dict, conf_dir: str = ".",
     return codes.  The parties run on this box's card unless the conf
     says "cpu": checked here, before anything is spawned.
     """
-    if "mesh" in conf:
-        raise NotImplementedError(_MESH_LATER)
     resolve_device("cpu" if conf.get("cpu") else "cuda")
+    if "mesh" in conf:
+        return _run_local_mesh(conf, timeout)
     plan = plan_commands(conf, conf_dir)
     broker_cmd = shlex.split(plan.pop("broker")["cmd"])
     # ephemeral local port instead of the conf's fleet-facing one
@@ -294,6 +324,33 @@ def run_local(conf: dict, conf_dir: str = ".",
         broker.terminate()
         broker.wait()
     return rcs
+
+
+def _run_local_mesh(conf: dict, timeout: float) -> Dict[str, int]:
+    """Validate a mesh conf on this box: every mesh-party process runs
+    here through a localhost coordinator, placed as
+    parallel/multihost.placement places them: the card repeated under
+    gloo where the processes outnumber the cards, a card each under NCCL
+    otherwise, the CPU under gloo for a "cpu" conf."""
+    from flashe_tpu_torch.parallel.multihost import (
+        free_port, placement, wait_group)
+
+    plan = plan_commands(conf)
+    devices, backend = placement(len(plan), 1,
+                                 "cpu" if conf.get("cpu") else "cuda")
+    port = free_port()
+    procs: List[subprocess.Popen] = []
+    try:
+        for entry, (dev,) in zip(plan.values(), devices):
+            argv = shlex.split(entry["cmd"])
+            argv[argv.index("--coordinator") + 1] = f"127.0.0.1:{port}"
+            if not conf.get("cpu"):
+                argv += ["--device", dev, "--backend", backend]
+            procs.append(subprocess.Popen(argv))
+    except BaseException:
+        wait_group(procs, 0)
+        raise
+    return dict(zip(plan, wait_group(procs, timeout)))
 
 
 def main(argv=None) -> int:

@@ -6,8 +6,11 @@
 - build_party_cfg equals the JAX function's config plus "device"; both
   refuse the same malformed arguments, and load_cluster_conf the same
   malformed confs.
-- A mesh conf (deploy/mesh_conf.yml) raises NotImplementedError naming
-  ROADMAP.md's multi-GPU item.
+- A mesh conf plans one `mesh-party` a host as the JAX package plans it
+  (its tests/test_cluster_mode.py::test_mesh_conf_plan, and
+  deploy/mesh_conf.yml), `--cpu` added for a CPU conf; run_local of a
+  mesh conf asks for the card (tests/test_torch_multihost.py runs one on
+  the CPU).
 - `cluster --run-local --cpu` of an MLP FLASHE job (broker, guest, host and
   arbiter, one process each, on the CPU): every return code 0, the two
   clients on one model, and losses within 1e-5 relative of the in-process
@@ -23,6 +26,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from flashe_tpu.runtime import cluster as jcluster
 from flashe_tpu_torch.__main__ import main as cli_main
@@ -149,10 +153,36 @@ def test_load_cluster_conf_refusals_match_jax(conf, match, tmp_path):
 
 
 def test_mesh_conf_raises_naming_multi_gpu():
-    conf = cluster.load_cluster_conf(os.path.join(DEPLOY, "mesh_conf.yml"))
-    for run in (cluster.plan_commands, cluster.run_local):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-            run(conf)
+    """The mesh conf is ported (multi-GPU): the port twin of
+    tests/test_cluster_mode.py::test_mesh_conf_plan, and
+    deploy/mesh_conf.yml's plan equal to the JAX one.  Without a card,
+    running a mesh conf that does not say cpu raises, naming the card."""
+    conf = {"mesh": {
+        "coordinator": "10.0.0.2:9401",
+        "hosts": [{"host": "10.0.0.2", "data": "/d/s0.npz"}, "10.0.0.3"],
+        "rounds": 7, "model": "mlp"}}
+    plan = cluster.plan_commands(conf)
+    assert set(plan) == {"mesh_0", "mesh_1"}
+    assert "broker" not in plan
+    c0 = plan["mesh_0"]["cmd"]
+    assert c0.startswith("python -m flashe_tpu_torch mesh-party ")
+    assert "--coordinator 10.0.0.2:9401" in c0
+    assert "--num-processes 2" in c0
+    assert "--process-id 0" in c0
+    assert "--rounds 7" in c0
+    assert "--data /d/s0.npz" in c0
+    assert "--data" not in plan["mesh_1"]["cmd"]
+    assert plan["mesh_1"]["host"] == "10.0.0.3"
+    assert plan == _jax_plan(conf, ".")
+    yml = cluster.load_cluster_conf(os.path.join(DEPLOY, "mesh_conf.yml"))
+    assert cluster.plan_commands(yml) == _jax_plan(
+        jcluster.load_cluster_conf(os.path.join(DEPLOY, "mesh_conf.yml")),
+        ".")
+    cpu = cluster.plan_commands(dict(yml, cpu=True))
+    assert all(e["cmd"].endswith(" --cpu") for e in cpu.values())
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cluster.run_local(yml)
 
 
 def test_cluster_run_local(tmp_path, monkeypatch, capsys):

@@ -146,7 +146,9 @@ def test_mask_apply_refuses_other_devices():
 
 
 def test_unported_paths_raise():
-    """Only local sharding and the sparse decrypt above 32 bits raise."""
+    """Only the sparse decrypt above 32 bits raises, and local sharding
+    onto more shards than devices (set_local_devices is ported: a CPU
+    cipher shards over the CPU repeated; tests/test_torch_parallel.py)."""
     # the single mask, the location lists and wide lanes are ported
     assert FlasheCipher(20, mask="single", device="cpu").masking_scheme == \
         "single"
@@ -154,8 +156,12 @@ def test_unported_paths_raise():
     c.set_masks([[0, 1]], 4)
     assert c.masks[0].tolist() == [0, 1]
     assert FlasheCipher(120, device="cpu").int_bits == 120
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        c.set_local_devices(2)
+    with pytest.raises(ValueError, match="3 > 2 local devices"):
+        c.set_local_devices(3, devices=["cpu"] * 2)
+    c.set_local_devices(2)
+    assert c._party_mesh.n_shards == 2
+    c.set_local_devices(1)  # one device: the route is off
+    assert c._party_mesh is None
     wide = FlasheCipher(40, device="cpu")
     wide.generate_prp_seed(assigned_seed=SEED)
     wide.set_masks([[0]], 2)

@@ -205,8 +205,17 @@ def test_bfv_batching_needs_t_one_mod_2m():
 
 
 def test_bfv_set_local_devices_raises():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        _bfv(BFV_T[1])[1].set_local_devices(2)
+    """set_local_devices is ported (fanned rounds:
+    tests/test_torch_parallel.py): more shards than devices raise, and a
+    one-device fan-out leaves the route off."""
+    p = _bfv(BFV_T[1])[1]
+    with pytest.raises(ValueError, match="3 > 2 local devices"):
+        p.set_local_devices(3, ["cpu"] * 2)
+    p.set_local_devices(1, ["cpu"])
+    assert p._fanout is None
+    p.set_local_devices(2, ["cpu"] * 2)
+    assert p._fanout.n_shards == 2
+    p.set_local_devices(1, ["cpu"])
 
 
 # -- CKKS ------------------------------------------------------------------
@@ -306,5 +315,11 @@ def test_ckks_centred_reconstruction_exact_near_2_62(ckks):
 
 
 def test_ckks_set_local_devices_raises(ckks):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ckks[1].set_local_devices(2)
+    """As BFV's: too many shards raise, one device leaves the route off."""
+    p = ckks[1]
+    with pytest.raises(ValueError, match="3 > 2 local devices"):
+        p.set_local_devices(3, ["cpu"] * 2)
+    p.set_local_devices(2, ["cpu"] * 2)
+    assert p._fanout.n_shards == 2
+    p.set_local_devices(1, ["cpu"])
+    assert p._fanout is None

@@ -255,17 +255,32 @@ def test_submit_cli_json(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["mesh-party"],
+    ["mesh-party", "--num-processes", "1", "--process-id", "0",
+     "--rounds", "1", "--samples", "32"],
     ["cluster", "-c", os.path.join(os.path.dirname(CONFIG), "..", "..",
                                    "deploy", "mesh_conf.yml"), "--plan"]])
-def test_submit_unported_options_raise(flag):
-    """What the CLI does not port yet raises, naming its ROADMAP.md item
-    (submit's --processes, --publish and --checkpoint-dir are ported:
-    tests/test_torch_job_runner.py; the job server and the cluster:
-    tests/test_torch_server.py, tests/test_torch_cluster.py; storage-node:
-    test_storage_node_cli below)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli_main(flag + ["--cpu"])
+def test_submit_unported_options_raise(flag, capsys):
+    """The two commands that raised until multi-GPU was ported now run:
+    `mesh-party` as a group of one process on the CPU (JSON with its
+    digest and losses), and the mesh conf's plan (mesh-party commands with
+    --cpu).  Without --cpu, mesh-party asks for the card."""
+    from flashe_tpu_torch.parallel.multihost import free_port
+
+    if flag[0] == "mesh-party":
+        flag = flag + ["--coordinator", f"127.0.0.1:{free_port()}"]
+    assert cli_main(flag + ["--cpu"]) == 0
+    out = capsys.readouterr().out
+    if flag[0] == "mesh-party":
+        res = json.loads(out.strip().splitlines()[-1])
+        assert res["device"] == "cpu" and res["backend"] == "gloo"
+        assert np.all(np.isfinite(res["loss_history"]))
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                cli_main(flag)
+    else:
+        cmds = [line for line in out.splitlines() if "mesh-party" in line]
+        assert len(cmds) == 3
+        assert all(c.endswith(" --cpu") for c in cmds)
 
 
 @pytest.mark.parametrize("server", [[], ["--python"]], ids=["native",

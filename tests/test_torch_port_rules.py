@@ -16,7 +16,10 @@
   `serve`), the cluster's party config and party (`build_party_cfg`,
   `run_party`, `party`), `cluster --run-local`, and the scheme-comparison
   harness (its CLI, `measure_scheme`, `measure_train_step`,
-  `check_flashe_sum`).  The table data plane, `storage-node` and the
+  `check_flashe_sum`), and the multi-device entry points (`make_mesh`,
+  `encrypted_aggregate` on its mesh, `LocalLaneMesh`, `DeviceFanout`,
+  `run_mesh_training`, `mesh-party`, `dryrun_multichip`), which default to
+  every visible card.  The table data plane, `storage-node` and the
   Paillier float facade are host code that touches no card.
 """
 
@@ -66,6 +69,10 @@ from flashe_tpu_torch.runtime.server import JobServer
 from flashe_tpu_torch.runtime.simulate import run_roles
 from flashe_tpu_torch.runtime.task_executor import run_task
 from flashe_tpu_torch.tools import compare_schemes
+from flashe_tpu_torch import graft
+from flashe_tpu_torch.parallel import mesh_party, sharded
+from flashe_tpu_torch.parallel.fanout import DeviceFanout
+from flashe_tpu_torch.parallel.party import LocalLaneMesh
 from flashe_tpu_torch.quant import aciq as paciq
 from flashe_tpu_torch.quant import quantizer as pquant
 
@@ -112,7 +119,10 @@ def test_port_and_chip_smoke_import_no_jax_package():
                  "runtime.cluster", "native", "data.codec", "data.kvstore",
                  "data.egg", "data.remote_kv", "data.table",
                  "crypto.fixedpoint", "crypto.encrypt_mode",
-                 "tools.compare_schemes", "tools.roofline"):
+                 "tools.compare_schemes", "tools.roofline", "graft",
+                 "parallel.sharded", "parallel.party", "parallel.fanout",
+                 "parallel.multihost", "parallel.mesh_party",
+                 "parallel._multihost_child", "parallel._mesh_party_child"):
         assert f"flashe_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -301,6 +311,19 @@ def _constructors():
             "plain", 8, np.random.RandomState(0)),
         "measure_train_step": lambda: compare_schemes.measure_train_step(1),
         "check_flashe_sum": lambda: compare_schemes.check_flashe_sum(8),
+        "LocalLaneMesh": lambda: LocalLaneMesh(),
+        "DeviceFanout": lambda: DeviceFanout(),
+        "make_mesh": lambda: sharded.make_mesh(1, 1),
+        "encrypted_aggregate": lambda: sharded.encrypted_aggregate(
+            sharded.make_mesh(1, 1), torch.zeros(15, 16, dtype=torch.int32),
+            torch.zeros(1, 192, dtype=torch.int32), 0, 20, 1),
+        "run_mesh_training": lambda: mesh_party.run_mesh_training(
+            "127.0.0.1:1", 1, 0),
+        "mesh-party": lambda: cli_main([
+            "mesh-party", "--coordinator", "127.0.0.1:1",
+            "--num-processes", "1", "--process-id", "0"]),
+        "dryrun_multichip": lambda: graft.dryrun_multichip(1),
+        "graft.entry": lambda: graft.entry(),
     }
 
 
@@ -318,7 +341,9 @@ def _constructors():
     "HomoNNArbiter", "KerasDefineModel", "submit_job", "submit_dsl_job",
     "run_dsl_job", "run_task", "JobServer", "build_party_cfg", "run_party",
     "serve", "party", "cluster", "compare_schemes", "measure_scheme",
-    "measure_train_step", "check_flashe_sum"])
+    "measure_train_step", "check_flashe_sum", "LocalLaneMesh",
+    "DeviceFanout", "make_mesh", "encrypted_aggregate", "run_mesh_training",
+    "mesh-party", "dryrun_multichip", "graft.entry"])
 def test_entry_points_default_to_the_card(name):
     """Called with no device, each entry point asks for the card: on a host
     without one it raises and never carries on on the CPU."""

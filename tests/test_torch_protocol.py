@@ -27,6 +27,8 @@ The slice as a whole:
   within 5e-4 of each other and of FedAvg (the quantizers draw their
   uniforms from different generators, so the match is statistical: each
   side is within one quantization step, about 1.5e-4 here, per client);
+- with `local_lane_shards` 2 (each client's lanes over the CPU twice) the
+  round's models equal the single-device round's, bit for bit;
 - ModelPayload.pack() bytes equal the JAX payload's at int_bits 20 and 120,
   and a (B, 2, k, N) ring-ciphertext payload splits and joins as the JAX
   payload's does.
@@ -628,15 +630,20 @@ def test_payload_of_ring_ciphertexts():
 
 
 def test_local_lane_shards_raise():
-    args = _args(local_lane_shards=2)
-
-    def client(trv, *h):
-        with pytest.raises(NotImplementedError, match="local devices"):
-            aggregator.with_role("host" if h else "guest", trv, 1.0,
-                                 "flashe", args, device="cpu")
-
-    def arbiter(trv):
-        aggregator.with_role("arbiter", trv, 1.0, "flashe", args,
-                             device="cpu")
-
-    run_roles(N_HOSTS, client, client, arbiter, timeout=60)
+    """`local_lane_shards` is ported (the counterpart of
+    tests/test_party_mesh.py::test_protocol_with_multi_device_parties_
+    matches_single): two rounds where every client's cipher splits its
+    lanes over 2 devices (the CPU twice) end on the single-device round's
+    models, bit for bit, with the mesh installed; more shards than the
+    devices given raise."""
+    flats, codec = _dense_inputs()
+    keep = lambda agg: agg._block.cipher._party_mesh  # noqa: E731
+    sharded = _roles("flashe", _args(local_lane_shards=2), flats, codec,
+                     rounds=2, keep=keep)
+    single = _roles("flashe", _args(), flats, codec, rounds=2)
+    for (outs, mesh), ref in zip(_clients(sharded), _clients(single)):
+        assert mesh is not None and mesh.n_shards == 2
+        for got, want in zip(outs, ref):
+            np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="local devices"):
+        FlasheCipher(20, device="cpu").set_local_devices(3, ["cpu"] * 2)
