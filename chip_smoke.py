@@ -182,12 +182,12 @@ Phases, each of which fails the run:
      flashe_tpu_torch.tools.compare_schemes --out F`, a process of its own
      on the card, at full width (1,206,590 parameters, 24 batches of 128 a
      round) with its six default rows: every row `correct` (for flashe and
-     flashe+sparse ten clients' decrypted sum equal to their summed q mod
-     2^20), the wire MB a client exactly 9.653 / 6.033 / 1.237 / 12.114 /
-     111.542 / 222.331, the platform the card (its nvidia-smi line), and
-     each row's kernel launches: 15 double mask launches in each FLASHE
-     row (4 timed, 11 in the check), mont_mul and mont_exp_rows in the
-     Paillier row, none in the others.  It prints one `comparison` JSON
+     flashe+sparse the timed decrypt of ten clients' summed ciphertexts
+     equal to their summed q mod 2^20), the wire MB a client exactly 9.653
+     / 6.033 / 1.237 / 12.114 / 111.542 / 222.331, the platform the card
+     (its nvidia-smi line), and each row's kernel launches: 13 double mask
+     launches in each FLASHE row (4 timed, 9 the other clients' encrypts),
+     mont_mul and mont_exp_rows in the Paillier row, none in the others.  It prints one `comparison` JSON
      line (the rows, the claims, the card's name and power limit);
  15. the table data plane (host code, no card): `python -m
      flashe_tpu_torch storage-node` on a temporary directory, which must
@@ -229,6 +229,30 @@ Phases, each of which fails the run:
      graft.dryrun_multichip(8, [cuda:0] x 8): FemnistCNN, 4 clients x 2
      shards, the survivor check. Mask launches counted here and in the
      children (`launches_multi_gpu`).
+17. the benchmark harness (run after phase 16), bench.py's nine modes as
+     flashe_tpu_torch/tools/bench.py runs them at their defaults:
+     `python -m flashe_tpu_torch.tools.bench --verbose` as a process (exit
+     0, one JSON line with bench.py's metric, the guard held at 4,194,304
+     lanes x 10 clients x int_bits 20, 5 samples, the card's nvidia-smi
+     line, the mask launches its code makes), then in this process
+     roundtrip1m (the limbs mode at 1,048,576 lanes, q given back exactly),
+     precompute (11 single launches at 10,000,000 lanes), paillier (this
+     run's 2048-bit key, 2,048 rows), model100m (the mask kernel at
+     100,000,000 lanes, its decrypt 10 q mod 2^20), table2 (its first
+     size, 16,384, no --full: every row correct, launches from each
+     cell's calls), roofline
+     (csrc/ceiling.cu's kernels checked against their plain chains), multihost
+     (2 processes on cuda:0 over gloo, their launches) and party (cuda:0
+     twice: shards 1 and 2, every row correct); each mode's metric name and
+     its launches as deltas around it, against what its code makes; one
+     `bench` JSON line of every mode's result; the mask kernel at the
+     modes' shapes that no earlier phase runs, one launch over the whole
+     vector held lane for lane against the plain version (run chunk by
+     chunk at each chunk's counter block): model100m's encrypt and decrypt
+     at 100,000,000 lanes, precompute's stream 10 at 10,000,000,
+     roundtrip1m's encrypt at 1,048,576 x 2 limbs; the ceiling kernels
+     against their plain versions at 8,388,608 elements and timed
+     (`launches_bench` in the kernels' line).
 It prints the script's seconds at the end of each phase.
 It prints ptxas's registers and spills of every kernel instance after the
 build and, where the toolkit has cuobjdump, the mask kernel's instruction
@@ -320,7 +344,11 @@ from flashe_tpu_torch.runtime.job_manager import JobRegistry
 from flashe_tpu_torch.runtime.simulate import run_roles
 from flashe_tpu_torch.runtime.tracking import (
     Tracker, set_tracker, tracker)
-from flashe_tpu_torch.tools import roofline
+from flashe_tpu_torch.tools import bench, ceiling, roofline
+from flashe_tpu_torch.tools.bench import round_keys
+from flashe_tpu_torch.tools.roofline import mask_bound
+from flashe_tpu_torch.tools.timing import (
+    event_ms, graph_ms, launch_counts, launches_since, run_ms, time_turns)
 from flashe_tpu_torch import graft, native
 from flashe_tpu_torch.parallel import multihost
 from flashe_tpu_torch.parallel.sharded import (
@@ -341,7 +369,7 @@ N_FEMNIST = 1_206_590
 # --times also reads the mask kernel's fixed cost: at int_bits 20 one
 # counter block, one 32-block span on each of 132 SMs, 1,024 blocks on each
 MASK_SMALL_COUNTS = (6, 25_344, 811_008)
-KERNEL_SOURCES = ("flashe_mask", "montgomery")
+KERNEL_SOURCES = ("flashe_mask", "montgomery", "ceiling")
 # the mask kernel's other modes: (add, minus) streams of their grids
 SINGLE_STREAMS = ((2, None), (None, 7))
 LIMB_INT_BITS = (33, 40, 63, 64, 65, 96, 120, 127, 128)
@@ -408,12 +436,12 @@ FEMNIST_DEFINE = {"class_name": "Sequential", "config": {
 
 # phase 14: the comparison harness at its defaults, and the wire MB a client
 # of each row (docs/COMPARISON.md, exact on every device); the FLASHE rows'
-# double launches: (warm + timed) x (encrypt + decrypt pair), then the
-# check's 10 encrypts + 1 decrypt pair
+# double launches: the other 9 clients' encrypts, once, then (warm +
+# timed) x (encrypt + decrypt pair)
 COMPARISON_WIRE_MB = {"plain": 9.653, "flashe": 6.033, "flashe+sparse": 1.237,
                       "paillier+batch": 12.114, "bfv+batch": 111.542,
                       "ckks+batch": 222.331}
-COMPARISON_FLASHE_DOUBLE = 2 * 2 + N_CLIENTS + 1
+COMPARISON_FLASHE_DOUBLE = N_CLIENTS - 1 + 2 * 2
 COMPARISON_TIMEOUT_S = 600
 # phase 15: the table data plane: a CSV of TABLE_ROWS x TABLE_FEATURES
 # floats and a label, partitioned 4 ways; the float facade's key
@@ -455,19 +483,6 @@ N_CTS = 12_066  # ceil(1,206,590 / 100) lanes of 100 fields of 20 bits
 MONT_BITS = (32, 64, 250, 256, 288, 512, 544, 1024, 1056, 2016, 2048, 2080,
              3200, 4096)
 MONT_ROWS = (0, 1, 5, 8, 129, 2048)
-# one T-table AES-256 block, counted a pipe at a time with the round keys
-# in registers.  Integer pipe: the first AddRoundKey (4 XOR), 13 rounds of
-# 4 columns x (4 byte extracts, 2 LOP3 that fold the 4 table words and the
-# round key), and the last round (16 byte extracts, 12 byte merges, 4 XOR):
-# 4 + 312 + 32.  Shared-memory loads: 13 x 16 table words and 16 S-box
-# bytes.  Loads bind: 224 / 32 a clock against 348 / 64.
-AES_TTABLE_INT_OPS = 348
-AES_TTABLE_LOADS = 224
-# a lane's integer operations, for each limb: an extract and an add or
-# subtract for each stream, a mask and a select (6 for the double mask)
-def lane_ops(streams: int) -> int:
-    return 2 * streams + 2
-
 # FIPS-197 appendix C.3: AES-256, key 00 01 .. 1f
 FIPS_PT = "00112233445566778899aabbccddeeff"
 FIPS_CT = "8ea2b7ca516745bfeafc49904b496089"
@@ -489,12 +504,6 @@ def _words_lsb_first(hex_block: str):
 
 def _as_i64(v: int) -> int:
     return v - (1 << 64) if v >= 1 << 63 else v
-
-
-def round_keys(dev):
-    """Round keys of the seed bytes(range(32)), the FIPS-197 C.3 key."""
-    return torch.from_numpy(aes.key_schedule(bytes(range(32))).astype(
-        "int32")).to(dev)
 
 
 def grid_counts(m, span, one_pass):
@@ -922,66 +931,6 @@ def check_round(dev, survivors, it, r, int_bits=INT_BITS, batch=False):
         raise AssertionError(f"new model off the clients' mean by "
                              f"{float((err / step).max()):.3f} steps")
     return float((err / step).max())
-
-
-def event_ms(fn, reps):
-    """Per-call milliseconds of fn() with CUDA events, one pair per call."""
-    out = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        out.append(a.elapsed_time(b))
-    return out
-
-
-def run_ms(fn, reps):
-    """Milliseconds a call of fn() over a run of reps back-to-back calls
-    between one pair of CUDA events (the card's rate, as long as the host
-    launches faster than the card runs)."""
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def time_turns(kern, plain, reps, plain_reps):
-    """ms a call of kern() and of plain() on the same inputs: runs of reps
-    (plain_reps) calls in turns plain, kernel, kernel, plain after one
-    warm-up call of each; the mean of the two runs of each."""
-    for f in (kern, plain):
-        f()
-    samples = {"kernel": [], "plain": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        if name == "kernel":
-            samples[name].append(run_ms(kern, reps))
-        else:
-            samples[name].append(run_ms(plain, plain_reps))
-    return (statistics.mean(samples["kernel"]),
-            statistics.mean(samples["plain"]))
-
-
-def graph_ms(fn, reps):
-    """Milliseconds a call of fn() with reps calls captured in one CUDA
-    graph and the graph replayed: the card's rate, whatever the host's
-    launch rate is."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    ms = run_ms(graph.replay, 1) / reps
-    del graph
-    return ms
 
 
 def time_kernel(dev, count, reps=50, plain_reps=10):
@@ -3781,8 +3730,7 @@ def run_multihost(dev, n_proc):
     q = np.random.RandomState(0).randint(0, 1 << 16, (n_proc, n))
     qt = torch.from_numpy(q.astype(np.int32)).to(dev)
     mesh = make_mesh(n_proc, 1, [dev] * n_proc)
-    rk = torch.from_numpy(aes.key_schedule(bytes(range(32))).astype(
-        np.int32)).to(dev)
+    rk = round_keys(dev)
     survivors = tuple(range(n_proc - 1)) if n_proc > 1 else (0,)
     want = [hashlib.sha256(encrypted_aggregate(
         mesh, rk, qt, it, INT_BITS, n_proc, surv).cpu().numpy()
@@ -4013,20 +3961,254 @@ def run_multi_gpu_phase(dev, keypair, tf32):
     return dict(mask=launches, mont=in_process_mont, secs=secs)
 
 
-def mask_bound(count, card, m=INT_BITS, streams=2, sectors=None):
-    """The mask kernel's bound at `count` lanes of m bits and `streams`
-    mask streams: that many T-table AES-256 blocks for every 128 // m
-    lanes, lane_ops(streams) a limb of a lane.  Bytes: each lane's limbs
-    read from q and written to out; or for the scatter (`sectors`, the
-    32-byte sectors of the aggregate that the locations touch) the int64
-    locations read once and those sectors read and written."""
-    limbs = lanes.nlimbs_for(m)
-    blocks = streams * -(-count // masks.merge_size(m))
-    nbytes = (8 * limbs * count if sectors is None
-              else 8 * count + 2 * 32 * sectors)
-    return roofline.bound_ms(
-        blocks * AES_TTABLE_INT_OPS + lane_ops(streams) * limbs * count,
-        nbytes, card, lds=blocks * AES_TTABLE_LOADS)
+# ---------------------------------------------------------------------------
+# phase 17: the benchmark harness (flashe_tpu_torch/tools/bench.py)
+# ---------------------------------------------------------------------------
+
+BENCH_TIMEOUT_S = 300
+BENCH_REPS, BENCH_STATS = 20, 5  # the harness's defaults
+BENCH_PARTY_DEVICES = 2  # the party mode over cuda:0 twice, as phase 16
+BENCH_METRICS = {
+    "flashe": "flashe_enc_agg_dec_elements_per_sec_per_chip",
+    "roundtrip1m": "flashe64_roundtrip_elements_per_sec",
+    "precompute": "flashe_online_round_seconds_10clients_10m",
+    "paillier": "paillier2048_modexp_ciphertexts_per_sec",
+    "model100m": "flashe_100m_full_round_elements_per_sec",
+    "table2": "table2",
+    "roofline": "roofline",
+    "multihost": "flashe_multihost_round_elements_per_sec",
+    "party": "party_shard_scaling",
+}
+# mont_mul launches of mont_exp_window under a 2048-bit key (15 table
+# products, 4 squarings and a product for each of n's 512 digits), and of
+# one add_ciphertexts of 10 uploads (10 into the domain, 9 products, 1 out)
+MODEXP_MULS = 15 + 5 * 512
+PAILLIER_ADD10_MULS = 10 + 9 + 1
+
+
+# the mask kernel at the harness's shapes that no earlier phase runs, each
+# a whole launch held lane for lane against the plain version: model100m's
+# encrypt (client 9: streams 9 and 10) and decrypt (the boundary pair 10
+# and 0) at 100,000,000 lanes, 16,666,667 counter blocks a stream;
+# precompute's stream 10 (single mode, on zeros) at 10,000,000;
+# roundtrip1m's encrypt (streams 0 and 1) at 1,048,576 lanes of 2 limbs
+HARNESS_MASK_CASES = (
+    ("model100m encrypt", 100_000_000, INT_BITS, 9, 10, False),
+    ("model100m decrypt", 100_000_000, INT_BITS, N_CLIENTS, 0, False),
+    ("precompute stream 10", 10_000_000, INT_BITS, N_CLIENTS, None, True),
+    ("roundtrip1m encrypt", 1_048_576, 64, 0, 1, False),
+)
+# the plain version runs chunk by chunk (its AES holds 128 bytes of int64
+# a counter block): 2^21 blocks a chunk, each at its own base_block
+REF_CHUNK_BLOCKS = 1 << 21
+# table2 in the script: its first size (the script's time, PERF.md section
+# 4); `python -m flashe_tpu_torch.tools.bench --mode table2` runs all three
+BENCH_TABLE_SIZES = (16384,)
+
+
+def check_harness_masks(dev):
+    """HARNESS_MASK_CASES: one launch of fm.mask_apply over the whole
+    vector, against fm.mask_apply_ref over every chunk of it at the
+    chunk's counter block.  Returns {case: (lanes, max abs error, the
+    kernel's mode)}."""
+    rk = round_keys(dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 17)
+    out = {}
+    for what, n, m, add, minus, zeros in HARNESS_MASK_CASES:
+        q = (torch.zeros(n, dtype=torch.int32, device=dev) if zeros
+             else _rand_lanes(gen, dev, n, m))
+        got = fm.mask_apply(q, rk, 0, add, minus, m)
+        merge = masks.merge_size(m)
+        step = REF_CHUNK_BLOCKS * merge
+        err = 0
+        for s in range(0, n, step):
+            err = max(err, _same(
+                "mask kernel", got[s:s + step],
+                fm.mask_apply_ref(q[s:s + step], rk, 0, add, minus, m,
+                                  base_block=s // merge),
+                f"{what}, lanes {s} .. {min(s + step, n) - 1} of {n}"))
+        mode = ("single" if minus is None else "limbs" if m > 32
+                else "double")
+        out[what] = (n, err, mode)
+        del q, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def bench_cli_launches(reps=BENCH_REPS, stats=BENCH_STATS, c=N_CLIENTS):
+    """The mask launches of `bench --verbose`: a warm round (c encrypts, a
+    decrypt), stats samples of reps runs of c encrypts and of a decrypt,
+    reps encrypts of one client, reps rounds on the host clock, and the
+    CUDA graphs (a warm call and reps captured calls of each phase; a
+    replay launches through no wrapper)."""
+    return ((c + 1) * (1 + stats * reps) + reps + (c + 1) * reps
+            + c * (1 + reps) + 1 + reps)
+
+
+def run_bench_cli(smi):
+    """`python -m flashe_tpu_torch.tools.bench --verbose`, a process of its
+    own: exit 0, one JSON line with bench.py's metric, the guard held (the
+    process exits non-zero otherwise), 5 samples, the card's line and the
+    mask launches its code makes.  Returns the line and its seconds."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "flashe_tpu_torch.tools.bench", "--verbose"],
+        cwd=ROOT, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    lines = res.stdout.strip().splitlines()
+    if res.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench --verbose: rc {res.returncode}, "
+                             f"{len(lines)} lines\n{res.stdout[-3000:]}\n"
+                             f"{res.stderr[-6000:]}")
+    out = json.loads(lines[0])
+    d = out["detail"]
+    want = {"mask double": bench_cli_launches()}
+    if (out["metric"] != BENCH_METRICS["flashe"] or out["unit"] != "elements/s"
+            or out["spread"]["n_samples"] != BENCH_STATS
+            or d["card"] != smi or d["elements"] != 4_194_304
+            or d["clients"] != N_CLIENTS or d["int_bits"] != INT_BITS
+            or d["launches"] != want or not out["value"] > 0):
+        raise AssertionError(f"bench --verbose: {out}, expected the card "
+                             f"{smi!r} and launches {want}")
+    return out, secs
+
+
+def table2_launches(rows):
+    """The kernel launches of run_table2's code, from each row's calls:
+    a FLASHE encrypt or decrypt call is one double launch and each row
+    encrypts 9 more clients once; a Paillier encrypt call is one
+    mont_exp_window with a product into and out of the domain, an add
+    PAILLIER_ADD10_MULS products, a decrypt one mont_exp_rows (every
+    decrypt here has at least 8 ciphertexts); BFV and CKKS launch no
+    kernel of csrc/."""
+    want = collections.Counter()
+    for r in rows:
+        calls = r["calls"]
+        if calls is None:
+            continue
+        if r["algorithm"] == "flashe":
+            want["mask double"] += (calls["encrypt"] + N_CLIENTS - 1
+                                    + calls["decrypt"])
+        elif r["algorithm"].startswith("paillier"):
+            if r["ciphertext_bytes"] // 512 < 8:
+                raise AssertionError(f"table2 row {r}: fewer than 8 "
+                                     "ciphertexts, a mont_mul_vec decrypt")
+            want["mont_mul"] += (PAILLIER_ENC_MULS * calls["encrypt"]
+                                 + PAILLIER_ADD10_MULS * calls["add10"])
+            want["mont_exp_rows"] += calls["decrypt"]
+    return dict(want)
+
+
+def check_bench(name, out, got, want):
+    """A mode's result: its metric, its correctness and the launches its
+    code makes (`want`), `got` being the launches read around it."""
+    if out["metric"] != BENCH_METRICS[name]:
+        raise AssertionError(f"bench {name}: metric {out['metric']}")
+    if got != want:
+        raise AssertionError(f"bench {name}: launches {got}, its code makes "
+                             f"{want}")
+
+
+def time_ceiling(dev, card, n=8_388_608):
+    """The ceiling kernels of the roofline mode at its shape: each against
+    its plain torch version on the card over the whole vector, the max
+    abs difference, ms a call of each (CUDA events, in turns), the bound
+    (ceiling.per_element's integer instructions and loads an element)."""
+    x = torch.arange(n, dtype=torch.int32, device=dev)
+    counts = ceiling.per_element()
+    out = {}
+    for name, kern, plain in (
+            ("int_chain", ceiling.int_chain, ceiling.int_chain_ref),
+            ("lds_chain", ceiling.lds_chain, ceiling.lds_chain_ref)):
+        err = int((kern(x).long() - plain(x).long()).abs().max())
+        if err:
+            raise AssertionError(f"{name}: the kernel differs from its plain "
+                                 f"version by {err}")
+        ms, plain_ms = time_turns(lambda: kern(x), lambda: plain(x), 20, 2)
+        ints, lds = counts[name]
+        out[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                         bound=roofline.bound_ms(n * ints, 8 * n, card,
+                                                 lds=n * lds),
+                         per_element=counts[name])
+    return out
+
+
+def run_bench_phase(dev, keypair, smi):
+    """Phase 17: the harness's nine modes at their defaults (table2 without
+    --full; party over cuda:0 twice), the headline as a process and the
+    others in this process, each one's launches read as deltas around it.
+    Returns {mode: (result, launches, seconds)}."""
+    t_phase = time.perf_counter()
+    runs = {}
+    head, secs = run_bench_cli(smi)
+    runs["flashe"] = (head, head["detail"]["launches"], secs)
+
+    def mode(name, fn, *args, **kw):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        out = fn(dev, *args, **kw)
+        runs[name] = (out, launches_since(before),
+                      time.perf_counter() - t0)
+        return out
+
+    out = mode("roundtrip1m", bench.run_roundtrip1m)
+    check_bench("roundtrip1m", out, runs["roundtrip1m"][1],
+                {"mask limbs": 2 + 2 * BENCH_REPS})
+    out = mode("precompute", bench.run_precompute)
+    check_bench("precompute", out, runs["precompute"][1],
+                {"mask single": N_CLIENTS + 1})
+    out = mode("paillier", bench.run_paillier, keypair=keypair)
+    check_bench("paillier", out, runs["paillier"][1],
+                {"mont_mul": 2 + 4 * MODEXP_MULS})
+    out = mode("model100m", bench.run_model100m)
+    check_bench("model100m", out, runs["model100m"][1],
+                {"mask double": 2 * (N_CLIENTS + 1)})
+    out = mode("table2", bench.run_table2, keypair=keypair,
+               sizes=BENCH_TABLE_SIZES)
+    wrong = [r["algorithm"] for r in out["rows"] if r["correct"] is not True]
+    # flashe, paillier+batch, paillier with its extrapolated rows,
+    # bfv+batch and ckks+batch at each size; no-batch bfv and ckks at one
+    if wrong or len(out["rows"]) != 5 * len(BENCH_TABLE_SIZES) + 2:
+        raise AssertionError(f"table2: rows not correct {wrong} of "
+                             f"{[r['algorithm'] for r in out['rows']]}")
+    check_bench("table2", out, runs["table2"][1],
+                table2_launches(out["rows"]))
+    out = mode("roofline", bench.run_roofline, keypair=keypair)
+    check_bench("roofline", out, runs["roofline"][1], {
+        "int_chain": 1 + BENCH_REPS, "lds_chain": 1 + BENCH_REPS,
+        "mask double": 2 * (1 + 50) + 50 + 1 + N_CLIENTS,
+        "mont_mul": 1 + 4 * MODEXP_MULS})
+    out = mode("multihost", bench.run_multihost)
+    d = out["detail"]
+    # children: each process's shards encrypt and decrypt once a round,
+    # 2 checked rounds and 3 timed ones
+    check_bench("multihost", out, runs["multihost"][1], {})
+    want = {"mask double": d["processes"] * 5 * 2 * d["devices_per_process"]}
+    if d["launches"] != want or d["card"] != smi:
+        raise AssertionError(f"multihost: {d}, expected launches {want}")
+    runs["multihost"] = (out, d["launches"], runs["multihost"][2])
+    out = mode("party", bench.run_party, devices=[dev] * BENCH_PARTY_DEVICES,
+               keypair=keypair)
+    wrong = [(k, r["shards"]) for k, rows in out["rows"].items() for r in rows
+             if r["correct"] is not True]
+    if wrong or out["detail"]["shard_counts"] != [1, 2]:
+        raise AssertionError(f"party: rows not correct {wrong}, shard "
+                             f"counts {out['detail']['shard_counts']}")
+    rows = 256 * BENCH_PARTY_DEVICES
+    check_bench("party", out, runs["party"][1], {
+        # a FLASHE encrypt: one launch a shard, 4 calls a shard count
+        "mask double": 4 * (1 + 2),
+        # Paillier: the first encrypt, then 4 encrypts and 4 decrypts a
+        # shard count, each fanned chunk one modexp and one mont_exp_rows
+        "mont_mul": PAILLIER_ENC_MULS * (1 + 4 * (1 + 2)),
+        "mont_exp_rows": 4 * (1 + 2)})
+    if rows // 2 < 8:
+        raise AssertionError("party: a fanned Paillier chunk under 8 rows")
+    for name, (r, _, _) in runs.items():
+        if r["detail"]["card"] != smi:
+            raise AssertionError(f"bench {name}: card {r['detail']['card']}")
+    secs = time.perf_counter() - t_phase
+    return runs, secs
 
 
 def nvidia_smi() -> str:
@@ -4049,9 +4231,8 @@ def print_mask_sass():
         return
     for name in names:
         ops = sass[name]
-        integer = sum(n for op, n in ops.items() if op in (
-            "PRMT", "LOP3", "SHF", "IADD3", "VIADD", "LEA", "SEL", "ISETP",
-            "IMAD", "MOV", "IABS", "IMNMX"))
+        integer = sum(n for op, n in ops.items()
+                      if op in roofline.INTEGER_OPCODES)
         print(f"sass flashe_mask.cu: {name}: {sum(ops.values())} "
               f"instructions, {ops['LDS']} LDS, {integer} integer ("
               + ", ".join(f"{op} {n}" for op, n in ops.most_common(12))
@@ -4381,6 +4562,33 @@ def main(argv=None) -> int:
     multi = run_multi_gpu_phase(dev, keypair, tf32)
     stamp("phase 16 (several devices)")
 
+    # the benchmark harness: its nine modes at their defaults
+    bench_runs, bench_s = run_bench_phase(dev, keypair, smi)
+    bench_launches = collections.Counter()
+    for name, (r, got, secs) in bench_runs.items():
+        bench_launches.update(got)
+        print(f"phase 17: bench --mode {name}: {r['metric']} = {r['value']} "
+              f"{r['unit']} (vs_baseline {r['vs_baseline']}), {secs:.2f} s, "
+              f"launches {got}")
+    print(f"phase 17: {bench_s:.2f} s; launches {dict(bench_launches)}")
+    print(json.dumps({"bench": {name: r for name, (r, _, _)
+                                in bench_runs.items()}}))
+    harness_masks = check_harness_masks(dev)
+    bench_mask_err = collections.Counter()
+    for what, (n, err, mode) in harness_masks.items():
+        bench_mask_err[mode] = max(bench_mask_err[mode], err)
+        print(f"phase 17: the mask kernel at {what}'s shape, {n:,} lanes in "
+              f"one launch ({mode}): lane for lane the plain version's (max "
+              f"abs error {err})")
+    ceil = time_ceiling(dev, card)
+    for name, t in ceil.items():
+        print(f"ceiling {name}: {t['ms']:.4f} ms a call at 8,388,608 "
+              f"elements (CUDA events), bound {t['bound'][0]:.4f} ms by "
+              f"{t['bound'][1]} ({t['per_element']} integer instructions "
+              f"and loads an element), plain torch {t['plain_ms']:.4f} ms, "
+              f"max |kernel - plain| {t['err']}")
+    stamp("phase 17 (the benchmark harness)")
+
     def trained(key):
         return sum(launches[key] for launches in train_launches.values())
 
@@ -4432,7 +4640,9 @@ def main(argv=None) -> int:
         "launches_cluster": runtime_launches["cluster"],
         "launches_comparison": cmp_launches["mask double"],
         "launches_multi_gpu": multi["mask"]["double"],
+        "launches_bench": bench_launches["mask double"],
         "max_abs_err": max_err,
+        "max_abs_err_bench_shapes": bench_mask_err["double"],
         "ms": times[N_FEMNIST][0],
         "host_calls_ms": times[N_FEMNIST][2],
         "plain_ms": times[N_FEMNIST][1],
@@ -4454,7 +4664,10 @@ def main(argv=None) -> int:
         # phase 16's sparse decrypt is path S's: every scatter is single
         "launches_multi_gpu": (0 if name == "scatter double"
                                else multi["mask"][err_key]),
+        "launches_bench": bench_launches[f"mask {err_key}"],
         "max_abs_err": mode_err[err_key],
+        **({"max_abs_err_bench_shapes": bench_mask_err[err_key]}
+           if err_key in bench_mask_err else {}),
         "ms": mode_times[name]["ms"],
         "host_calls_ms": mode_times[name]["host_calls_ms"],
         "plain_ms": mode_times[name]["plain_ms"],
@@ -4473,6 +4686,7 @@ def main(argv=None) -> int:
         "launches_training": trained(name),
         "launches_comparison": cmp_launches[name],
         "launches_multi_gpu": multi["mont"][name],
+        "launches_bench": bench_launches[name],
         "max_abs_err": mont_err[name],
         "ms": paths[name]["ms"],
         "plain_ms": paths[name]["plain_ms"],
@@ -4483,7 +4697,25 @@ def main(argv=None) -> int:
         "bound_ms": paths[name]["bound"][0],
         "bound_by": paths[name]["bound"][1],
         "library_ms": None,
-    } for name, replaces, path, per_round in mont_rows]}))
+    } for name, replaces, path, per_round in mont_rows] + [{
+        "name": f"ceiling_{name}",
+        "route": "cuda",
+        "source": "flashe_tpu_torch/csrc/ceiling.cu",
+        "replaces": replaces,
+        "launches": bench_launches[name],
+        "launches_bench": bench_launches[name],
+        "max_abs_err": t["err"],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "shape": "8,388,608 int32 elements (the roofline mode's)",
+        "bound_ms": t["bound"][0],
+        "bound_by": t["bound"][1],
+        "library_ms": None,
+    } for (name, t), replaces in zip(ceil.items(), (
+        "bench.py:906-917 (the roofline mode's XLA integer chain; no "
+        "Pallas kernel)",
+        "bench.py:877-1012 (the roofline mode; the shared-memory ceiling "
+        "of the mask kernel's bound, no TPU counterpart)"))]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,9 @@ Quantized values are int32 lanes holding uint32 bit patterns.
 Batching mode (`batch=True`) packs `int_bits // (eb + factor)` quantized
 elements into one int_bits-bit lane, element 0 most significant, with
 factor = ceil(log2(num_clients)) padding bits per element so that client
-sums never carry across fields.
+sums never carry across fields.  `batch_lanes_np` and `unbatch_lanes_np` are
+the same layout in numpy on uint32 arrays, bit for bit, for codecs that
+work on the host (the Paillier wire path, whose plaintexts are python ints).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from flashe_tpu_torch.ops.lanes import as_u32, nlimbs_for, to_i32
 
 __all__ = ["quantize_asym", "unquantize_asym", "batch_lanes", "unbatch_lanes",
-           "true_to_two", "two_to_true"]
+           "batch_lanes_np", "unbatch_lanes_np", "true_to_two", "two_to_true"]
 
 
 def quantize_asym(x: torch.Tensor, alpha, element_bits: int,
@@ -114,3 +116,52 @@ def unbatch_lanes(lanes: torch.Tensor, n: int, int_bits: int,
     # below 2^63
     v = (wide[:, wi] >> sh) | ((wide[:, wi + 1] & 0x7FFFFFFF) << (32 - sh))
     return to_i32(v & ((1 << ebf) - 1)).reshape(nlanes * bs)[:n]
+
+
+def batch_lanes_np(q: np.ndarray, int_bits: int, element_bits: int,
+                   factor: int) -> np.ndarray:
+    """batch_lanes on the host: (n,) uint32 values -> (nlanes,) uint32
+    lanes, or (nlanes, L) uint32 limbs above 32 bits, the same layout bit
+    for bit."""
+    ebf, bs = _field_layout(int_bits, element_bits, factor)
+    q = np.asarray(q, np.uint32)
+    n = q.shape[0]
+    nlanes = -(-n // bs)
+    qp = np.zeros((nlanes * bs,), np.uint32)
+    qp[:n] = q
+    qp = qp.reshape(nlanes, bs)
+    nl = nlimbs_for(int_bits)
+    limbs = [np.zeros((nlanes,), np.uint32) for _ in range(nl)]
+    for j in range(bs):
+        off = (bs - 1 - j) * ebf
+        wi, sh = off >> 5, off & 31
+        v = qp[:, j]
+        limbs[wi] = limbs[wi] | (v << np.uint32(sh))
+        if sh + ebf > 32 and wi + 1 < nl:
+            limbs[wi + 1] = limbs[wi + 1] | (v >> np.uint32(32 - sh))
+    if nl == 1:
+        return limbs[0]
+    return np.stack(limbs, axis=-1)
+
+
+def unbatch_lanes_np(lanes: np.ndarray, n: int, int_bits: int,
+                     element_bits: int, factor: int) -> np.ndarray:
+    """unbatch_lanes on the host: (n,) uint32 field values mod
+    2^(eb + factor)."""
+    ebf, bs = _field_layout(int_bits, element_bits, factor)
+    nl = nlimbs_for(int_bits)
+    lanes = np.asarray(lanes, np.uint32)
+    if nl == 1:
+        lanes = lanes[:, None]
+    nlanes = lanes.shape[0]
+    fmask = np.uint32((1 << ebf) - 1) if ebf < 32 else np.uint32(0xFFFFFFFF)
+    cols = []
+    for j in range(bs):
+        off = (bs - 1 - j) * ebf
+        wi, sh = off >> 5, off & 31
+        v = lanes[:, wi] >> np.uint32(sh)
+        if sh + ebf > 32 and wi + 1 < nl:
+            v = v | (lanes[:, wi + 1] << np.uint32(32 - sh))
+        cols.append(v & fmask)
+    out = np.stack(cols, axis=-1).reshape(nlanes * bs)
+    return out[:n]

@@ -38,12 +38,16 @@ differs from it:
 - config.platform is the device type, and config.card the card's name and
   power limit as nvidia-smi gives them (torch.cuda.get_device_name where
   nvidia-smi is absent, which config.card_source then says);
-- the `flashe` and `flashe+sparse` rows' `correct` is a real check, made
-  outside the timed region: ten clients' ciphers (idx 0-9, one seed)
-  encrypt their own q, the ciphertexts are summed through lane_add, and
-  the decrypt must equal the sum of the q mod 2^20 lane for lane.  The
-  timed flow stays the JAX one (one client's ciphertext added to itself
-  ten times, which no decrypt can verify), so that the times compare;
+- the `flashe` and `flashe+sparse` rows' `correct` is a real check of
+  the timed decrypt: ten clients' ciphers (idx 0-9, one seed) encrypt
+  their own q (nine of them once, outside the timed region), the server
+  add sums the ten ciphertexts through lane_add, and the decrypt must
+  equal the sum of the q mod 2^20 lane for lane.  The JAX harness adds one
+  client's ciphertext to itself ten times, which no decrypt can verify:
+  the same nine lane_adds, so that the times compare;
+- each scheme's cipher, calls and check are `tools/schemes.py`'s, which
+  bench.py's table2 (`tools/bench.py`) runs too; Paillier packs on the
+  host (`batch_lanes_np`), where its big ints live;
 - `flashe+sparse` is timed as the JAX harness times it: the dense kernel
   on n/10 lanes, plus the bytes of 21-bit locations.  It does not run the
   sparse round's path S (top-k, the single mask, the scatter decrypt);
@@ -64,28 +68,25 @@ import os
 import shutil
 import subprocess
 import sys
-import time
 
 import numpy as np
 import torch
 
 from flashe_tpu_torch.device import resolve_device
+from flashe_tpu_torch.tools import schemes
+# the harness's constants, BFV_T among them, are names of this module too
+from flashe_tpu_torch.tools.schemes import (BFV_N, BFV_T, CKKS_N, EB,  # noqa: F401
+                                            KEY_BITS, M, N_CLIENTS)
+from flashe_tpu_torch.tools.timing import launch_counts, timeit
 
 # ---- the reference deployment's price book (on-demand us-east, USD) ----
 PRICE_CLIENT_H = 0.68        # c5.4xlarge (reference clients)
 PRICE_SERVER_H = 1.008       # r5.4xlarge (reference arbiter)
 PRICE_TRANSFER_GB = 0.02     # inter-region transfer (geo-distributed)
-N_CLIENTS = 10
-EB, FACTOR = 16, 4           # 16-bit elements + ceil(log2(11)) pad bits
-M = EB + FACTOR              # 20-bit lanes
 
 SCHEMES = ("plain", "flashe", "flashe+sparse", "paillier+batch", "bfv+batch",
            "ckks+batch")
-KEY_BITS = 2048              # Paillier key; lanes of KEY_BITS bits
 LOC_BITS = 21                # a sparse location, bit-packed (log2(n) bits)
-BFV_T, BFV_N = 1964769281, 8192
-CKKS_N, CKKS_SCALE = 8192, 2.0 ** 40
-FLASHE_SEED = bytes(range(32))
 DOCS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "docs", "COMPARISON_TORCH.md")
 
@@ -191,25 +192,7 @@ def claims(rows: list) -> dict:
     return out
 
 
-# -- timing ---------------------------------------------------------------
-
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def timeit(f, device: torch.device, warm: bool = True):
-    """(seconds, result) of one call of f, host clock, after a warm call;
-    on the card each call ends in a synchronize, so the time holds the
-    host's work and the card's together."""
-    if warm:
-        f()
-        _sync(device)
-    t0 = time.perf_counter()
-    out = f()
-    _sync(device)
-    return time.perf_counter() - t0, out
-
+# -- training ---------------------------------------------------------------
 
 def measure_train_step(batches_per_round: int, batch_size: int = 128,
                        device="cuda") -> float:
@@ -234,54 +217,19 @@ def measure_train_step(batches_per_round: int, batch_size: int = 128,
 
 # -- the schemes ----------------------------------------------------------
 
-def flashe_client(idx: int, device) -> "FlasheCipher":
-    """Client idx of the harness's 10-client FLASHE session (one seed,
-    iteration 0)."""
-    from flashe_tpu_torch.crypto.flashe import FlasheCipher
-
-    c = FlasheCipher(M, device=device)
-    c.idx = idx
-    c.set_num_clients(N_CLIENTS)
-    c.generate_prp_seed(assigned_seed=FLASHE_SEED)
-    c.set_iter_index(0)
-    return c
-
-
 def check_flashe_sum(n: int, device="cuda", tamper=None) -> bool:
-    """Ten clients (idx 0-9) encrypt q of their own (M-bit values from
-    a seed), the ciphertexts are summed through lane_add, client 0
-    decrypts: True iff the decrypt equals the sum of the q mod 2^M lane
-    for lane.  `tamper` (tests) may alter the aggregate first."""
-    from flashe_tpu_torch.ops.lanes import as_u32, lane_add
-
+    """The FLASHE rows' check on its own: ten clients (idx 0-9) encrypt q
+    of their own (M-bit values from a seed), the ciphertexts are summed
+    through lane_add, client 0 decrypts: True iff the decrypt equals the
+    sum of the q mod 2^M lane for lane.  `tamper` (tests) may alter the
+    aggregate first."""
     dev = resolve_device(device)
-    rng = np.random.RandomState(1)
-    qs = [rng.randint(0, 1 << M, n).astype(np.int32)
-          for _ in range(N_CLIENTS)]
-    clients = [flashe_client(i, dev) for i in range(N_CLIENTS)]
-    agg = None
-    for c, q in zip(clients, qs):
-        ct = c.encrypt(torch.from_numpy(q).to(dev))
-        agg = ct if agg is None else lane_add(agg, ct, M)
+    q = np.random.RandomState(1).randint(0, 1 << M, (N_CLIENTS, n))
+    cell = schemes.flashe_cell(q, dev)
+    agg = cell.add10(cell.encrypt())
     if tamper is not None:
         agg = tamper(agg)
-    dec = as_u32(clients[0].decrypt(agg)).cpu().numpy()
-    want = np.sum(np.stack(qs).astype(np.int64), axis=0) % (1 << M)
-    return bool(np.array_equal(dec, want))
-
-
-def _chain_add(lane_add, ct, m):
-    acc = ct
-    for _ in range(N_CLIENTS - 1):
-        acc = lane_add(acc, ct, m)
-    return acc
-
-
-def _launch_counts() -> dict:
-    from flashe_tpu_torch.ops import flashe_mask, montgomery
-
-    return dict({f"mask {k}": v for k, v in flashe_mask.mode_launches.items()},
-                **montgomery.launches)
+    return cell.check(cell.decrypt(agg))
 
 
 def measure_scheme(scheme: str, n: int, rng, device="cuda",
@@ -291,84 +239,42 @@ def measure_scheme(scheme: str, n: int, rng, device="cuda",
     Returns {client_crypto_s, server_add_s, up_bytes, down_bytes, correct,
     launches}.  key_bits is the Paillier key's (the tests pass a small
     one; the harness runs the JAX harness's 2048)."""
-    from flashe_tpu_torch.ops import quantize as qops
-    from flashe_tpu_torch.ops.lanes import (ints_to_lanes, lane_add,
-                                            lanes_to_ints)
-
     dev = resolve_device(device)
-    before = _launch_counts()
-    q0 = rng.randint(0, 1 << EB, n).astype(np.uint32)
-    q_i32 = torch.from_numpy(q0.astype(np.int32))
-
+    before = launch_counts()
+    q_bits = count = None
     if scheme == "plain":
         # plaintext FATE sends the raw float32 weights (no quantization
         # needed, but we charge the same codec flatten cost: ~0)
         meas = {"client_crypto_s": 0.0, "server_add_s": 0.0,
                 "correct": True}
-    elif scheme in ("flashe", "flashe+sparse"):
-        eff_n = n if scheme == "flashe" else max(1, n // 10)  # top-10%
-        c = flashe_client(0, dev)
-        qv = q_i32[:eff_n].to(dev)
-        t_enc, ct = timeit(lambda: c.encrypt(qv), dev)
-        t_add, agg = timeit(lambda: _chain_add(lane_add, ct, M), dev)
-        t_dec, _ = timeit(lambda: c.decrypt(agg), dev)
-        meas = {"client_crypto_s": t_enc + t_dec, "server_add_s": t_add,
-                "correct": check_flashe_sum(eff_n, dev)}
-    elif scheme == "paillier+batch":
-        from flashe_tpu_torch.crypto.paillier import PaillierCipher
-
-        pail = PaillierCipher(device=dev)
-        pail.generate_key(key_bits)
-        packed = qops.batch_lanes(q_i32.to(dev), key_bits, EB, FACTOR)
-        ints = lanes_to_ints(packed, key_bits)
-        t_enc, cts = timeit(lambda: pail.encrypt(ints), dev)
-        t_add, agg = timeit(
-            lambda: pail.add_ciphertexts([cts] * N_CLIENTS), dev)
-
-        def dec():
-            sums = pail.decrypt(agg)
-            lanes = ints_to_lanes(sums, key_bits).to(dev)
-            return qops.unbatch_lanes(lanes, n, key_bits, EB, FACTOR)
-
-        t_dec, out = timeit(dec, dev)
-        ok = np.array_equal(out.cpu().numpy().astype(np.int64),
-                            (q0.astype(np.int64) * N_CLIENTS) % (1 << M))
-        _same_count("paillier+batch", len(ints),
-                    paillier_lanes(n, key_bits))
-        meas = {"client_crypto_s": t_enc + t_dec, "server_add_s": t_add,
-                "correct": bool(ok)}
-    elif scheme == "bfv+batch":
-        from flashe_tpu_torch.crypto.bfv import BFVCipher
-
-        bfv = BFVCipher(BFV_T, BFV_N, flagBatching=True, seed=0, device=dev)
-        bfv.generate_keys()
-        t_enc, cts = timeit(lambda: bfv.encrypt(q0), dev)
-        t_add, agg = timeit(
-            lambda: bfv.add_ciphertexts([cts] * N_CLIENTS), dev)
-        t_dec, dec = timeit(lambda: bfv.decrypt(agg, n), dev)
-        ok = np.array_equal(dec.cpu().numpy().astype(np.int64),
-                            q0.astype(np.int64) * N_CLIENTS)
-        _same_count("bfv+batch", cts.shape[0], -(-n // BFV_N))
-        meas = {"client_crypto_s": t_enc + t_dec, "server_add_s": t_add,
-                "correct": bool(ok), "q_bits": bfv.q.bit_length()}
-    elif scheme == "ckks+batch":
-        from flashe_tpu_torch.crypto.ckks import CKKSCipher
-
-        ck = CKKSCipher(CKKS_N, global_scale=CKKS_SCALE, seed=0, device=dev)
-        ck.generate_keys()
-        x0 = rng.randn(n).astype(np.float64)
-        t_enc, cts = timeit(lambda: ck.encrypt(x0), dev)
-        t_add, agg = timeit(
-            lambda: ck.add_ciphertexts([cts] * N_CLIENTS), dev)
-        t_dec, dec = timeit(lambda: ck.decrypt(agg, n), dev)
-        err = float(np.max(np.abs(dec.cpu().numpy() - x0 * N_CLIENTS)))
-        _same_count("ckks+batch", cts.shape[0], -(-n // (CKKS_N // 2)))
-        meas = {"client_crypto_s": t_enc + t_dec, "server_add_s": t_add,
-                "correct": err < 1e-2, "q_bits": ck.q.bit_length()}
     else:
-        raise SystemExit(f"unknown scheme {scheme!r}")
-    nbytes = wire_bytes(scheme, n, key_bits, meas.pop("q_bits", None))
-    after = _launch_counts()
+        if scheme in ("flashe", "flashe+sparse"):
+            eff_n = n if scheme == "flashe" else max(1, n // 10)  # top-10%
+            cell = schemes.flashe_cell(
+                rng.randint(0, 1 << EB, (N_CLIENTS, eff_n)), dev)
+        elif scheme == "paillier+batch":
+            pail = schemes.paillier_cipher(dev, key_bits)
+            cell = schemes.paillier_batch_cell(pail,
+                                               rng.randint(0, 1 << EB, n))
+            count = paillier_lanes(n, key_bits)
+        elif scheme == "bfv+batch":
+            bfv = schemes.bfv_cipher(dev)
+            cell = schemes.bfv_cell(bfv, rng.randint(0, 1 << EB, n))
+            count, q_bits = -(-n // BFV_N), bfv.q.bit_length()
+        elif scheme == "ckks+batch":
+            ck = schemes.ckks_cipher(dev)
+            cell = schemes.ckks_cell(ck, rng.randn(n))
+            count, q_bits = -(-n // (CKKS_N // 2)), ck.q.bit_length()
+        else:
+            raise SystemExit(f"unknown scheme {scheme!r}")
+        ((t_enc,), (t_add,), (t_dec,)), ct, ok = schemes.run_cell(
+            cell, lambda f: timeit(f, dev)[::-1])
+        if count is not None:
+            _same_count(scheme, len(ct), count)
+        meas = {"client_crypto_s": t_enc + t_dec, "server_add_s": t_add,
+                "correct": ok}
+    nbytes = wire_bytes(scheme, n, key_bits, q_bits)
+    after = launch_counts()
     meas.update(up_bytes=nbytes, down_bytes=nbytes, launches={
         k: after[k] - before[k] for k in after if after[k] != before[k]})
     return meas

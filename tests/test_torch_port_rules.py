@@ -119,7 +119,8 @@ def test_port_and_chip_smoke_import_no_jax_package():
                  "runtime.cluster", "native", "data.codec", "data.kvstore",
                  "data.egg", "data.remote_kv", "data.table",
                  "crypto.fixedpoint", "crypto.encrypt_mode",
-                 "tools.compare_schemes", "tools.roofline", "graft",
+                 "tools.compare_schemes", "tools.roofline", "tools.bench",
+                 "tools.timing", "tools.ceiling", "tools.schemes", "graft",
                  "parallel.sharded", "parallel.party", "parallel.fanout",
                  "parallel.multihost", "parallel.mesh_party",
                  "parallel._multihost_child", "parallel._mesh_party_child"):

@@ -97,7 +97,7 @@ def test_mask_bound_of_the_other_modes():
     ms, by = chip_smoke.mask_bound(120_655, CARD, streams=1, sectors=86_000)
     assert by == "bytes"
     assert ms == pytest.approx((8 * 120_655 + 64 * 86_000) / 3.35e12 * 1e3)
-    assert chip_smoke.lane_ops(2) == 6 and chip_smoke.lane_ops(1) == 4
+    assert roofline.lane_ops(2) == 6 and roofline.lane_ops(1) == 4
 
 
 @pytest.mark.parametrize("m, want", [
