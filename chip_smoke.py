@@ -34,7 +34,9 @@ Phases, each of which fails the run:
      20: path S (examples/configs/cnn_flashe_s100_dyn.json, dynamic
      masking, which must choose the single mask; two iterations, so that
      the residual memory is used), path D (the same with mask "double";
-     the second round drops client 9); and path B, the batched 120-bit round
+     the second round drops client 9; every client's locations encoded
+     and decoded by the native packer, csrc/packing.cpp, 10 packs and 10
+     unpacks a round); and path B, the batched 120-bit round
      (examples/configs/cnn_flashe_q16_b6_pad.json: 201,099 lanes of six
      20-bit fields, 4 limbs each, precompute on) and its dropout round.
      Decrypted lanes must equal the survivors' (densified) quantized sums
@@ -77,10 +79,12 @@ Phases, each of which fails the run:
      - in memory, cnn_paillier_q16_b100_pad.json with 3 clients at full
        width, the 2048-bit key generated by the guest: every client's
        decrypted sums equal to the packed sums, the Montgomery launches;
-     - over TCP: the port's FedBroker on 127.0.0.1 and the guest, one host
-       and the arbiter as three child processes of this script
-       (--tcp-role), one dense round with wire_pack; the same checks, and
-       the wire bytes from each party's TransferStat;
+     - over TCP: the port's native FedBroker (csrc/fedbroker.cpp, which
+       must be the one that runs) on 127.0.0.1 and the guest, one host and
+       the arbiter as three child processes of this script (--tcp-role),
+       one dense round with wire_pack; the same checks, one native pack
+       at each client and two native unpacks at the arbiter, and the wire
+       bytes from each party's TransferStat;
   9. timings with CUDA events over runs of launches (printed, not
      asserted), at the shapes the paths run: mont_mul at one encrypt's
      12,066 rows x 4096 bits (checked against its plain version there),
@@ -142,25 +146,30 @@ Phases, each of which fails the run:
      directory: (a) `python -m flashe_tpu_torch submit -c
      examples/configs/cnn_flashe_q16_b1_pad.json --processes
      --checkpoint-dir D --publish phase12 --json`, 11 party processes
-     (guest, 9 hosts, arbiter) on the one card over the TCP broker: every
-     task `success` in the job registry, every client's parameters on the
-     card, 2 double mask launches an iteration in each client process and
-     no other launch, none at the arbiter, the 10 checkpoints equal bit
-     for bit, loss_per_round finite and within 1e-3 relative of phase
-     10's in-process submit; each party's steady iteration by phase beside
+     (guest, 9 hosts, arbiter) on the one card over the TCP broker, whose
+     __job__ record must name the native one: every task `success` in
+     the job registry, every client's parameters on the card, 2 double
+     mask launches an iteration in each client process and no other
+     launch, none at the arbiter, the 10 checkpoints equal bit for bit,
+     loss_per_round finite and within 1e-3 relative of phase 10's
+     in-process submit; each party's steady iteration by phase beside
      phase 10's, the processes' start-up seconds and peak device memory
-     printed; (b) `predict --model phase12`: aggregate_iter 2 and scores
-     within 1e-5 of the guest's checkpoint loaded in this process; (c)
+     printed; (b) `predict --model phase12`, run beside (c):
+     aggregate_iter 2 and scores within 1e-5 of the guest's checkpoint
+     loaded in this process; (c)
      `submit-dsl --processes` of examples/dsl/train_job_conf.json made 1
      guest + 9 hosts with the FEMNIST CNN as a Keras nn_define (1,206,590
      parameters), max_iter 2, over DataIO tables that DataStore.put wrote
      from the port's federated_dataset: the same job checks, finite
      losses, every client's Evaluation.  The party processes write what
      is checked (device, launches, a digest of the final model, phases)
-     into their outputs (runtime/task_executor.py).
+     into their outputs (runtime/task_executor.py).  (c)'s job too ran over
+     the native broker, and no process of the port's fedbroker binary is
+     left after the phase (/proc/*/cmdline).
  13. the job server and the cluster deployment (run after phase 12, over
      its stores and DataIO tables): (a) `python -m flashe_tpu_torch serve
-     --port 0` a process of its own, FLASHE_MAX_CONCURRENT_JOB_RUN=1;
+     --port 0` a process of its own, FLASHE_MAX_CONCURRENT_JOB_RUN=1,
+     started beside phase 12 (c);
      (b) phase 12 (c)'s DSL job submitted through FlasheClient (11 party
      processes on the card): phase 12's job checks, losses within 1e-6
      relative of phase 12 (c)'s, and the server's views of it (tracking's
@@ -177,7 +186,10 @@ Phases, each of which fails the run:
      n_clients 2 (broker, guest, host, arbiter, a process each on the
      card): every return code 0, 2 double launches a client an iteration,
      none at the arbiter, one model digest, losses within 1e-3 relative of
-     the in-process submit of the same config.
+     the in-process submit of the same config.  The server's jobs and
+     the cluster's broker must be the native broker (the job's summary,
+     `cluster`'s line naming its broker), and no port fedbroker process is
+     left after the phase.
  14. the scheme comparison (run after phase 11): `python -m
      flashe_tpu_torch.tools.compare_schemes --out F`, a process of its own
      on the card, at full width (1,206,590 parameters, 24 batches of 128 a
@@ -253,6 +265,21 @@ Phases, each of which fails the run:
      roundtrip1m's encrypt at 1,048,576 x 2 limbs; the ceiling kernels
      against their plain versions at 8,388,608 elements and timed
      (`launches_bench` in the kernels' line).
+18. the native layer (run after phase 17; host code): (a) the wire
+     packer at the slice's shapes, from the seed: ten clients' path-S
+     locations (120,655 of 21 bits each, a top-10% by layer of
+     FemnistCNN's 1,206,590 lanes), one 20-bit upload of 1,206,590 lanes,
+     one path-B upload (201,099 lanes x 4 limbs at 120 bits): the native
+     packer's bytes equal the numpy path's, unpack gives the lanes back,
+     both timed (median of 5, host clock); (b) `python -m flashe_tpu_torch
+     broker --port 0` and `broker --python --port 0` as processes, each
+     naming its broker; through each, the arbiter sends ten FemnistCNN
+     aggregates (1,206,590 int32 lanes, 2 fragments) to ten receiving
+     parties (threads of this process), the brokers in turns for 3 timed
+     rounds after one warm-up each: every receiver's array equal, the
+     median from the first remote to the last get; both brokers stopped
+     with SIGTERM and exiting 0, and no port fedbroker process left.  One
+     `native_layer` JSON line.
 It prints the script's seconds at the end of each phase.
 It prints ptxas's registers and spills of every kernel instance after the
 build and, where the toolkit has cuobjdump, the mask kernel's instruction
@@ -305,7 +332,7 @@ from flashe_tpu_torch.crypto.bfv import BFVCipher
 from flashe_tpu_torch.crypto.ckks import CKKSCipher
 from flashe_tpu_torch.crypto.flashe import FlasheCipher, merge_idx_runs
 from flashe_tpu_torch.crypto.random_pads import PadsCipher
-from flashe_tpu_torch.fed.tcp import FedBroker, TcpFederation
+from flashe_tpu_torch.fed.tcp import _FRAGMENT, FedBroker, TcpFederation
 from flashe_tpu_torch.fed.transport import default_parties
 from flashe_tpu_torch.fed.variables import HomoTransferVariables
 from flashe_tpu_torch.__main__ import main as cli_main
@@ -326,6 +353,7 @@ from flashe_tpu_torch.nn.weights import WeightsCodec
 from flashe_tpu_torch.ops import _build, aes, lanes, masks, modmath, ntt
 from flashe_tpu_torch.ops import flashe_mask as fm
 from flashe_tpu_torch.ops import montgomery as mg
+from flashe_tpu_torch.ops import pack as packops
 from flashe_tpu_torch.ops import quantize as qops
 from flashe_tpu_torch.protocol import aggregator
 from flashe_tpu_torch.protocol.aggregator import (
@@ -723,6 +751,7 @@ def run_sparse_round(dev, codec, state, before, survivors, it, mask):
     secs = {}
     torch.cuda.synchronize()
     reset_launches()
+    packer = dict(native.calls)
     t0 = time.perf_counter()
     sels = [client_select(b, sp, f, before)
             for b, sp, f in zip(blocks, sparsifiers, flats)]
@@ -731,6 +760,7 @@ def run_sparse_round(dev, codec, state, before, survivors, it, mask):
     t0 = time.perf_counter()
     masks = [decode_locations(s.encoded) for s in sels]
     secs["decode x 10"] = time.perf_counter() - t0
+    packer = {k: v - packer[k] for k, v in native.calls.items()}
     t0 = time.perf_counter()
     broadcast = arbiter_masking(masks, codec.total, mask, device=dev)
     secs["masking choice"] = time.perf_counter() - t0
@@ -759,7 +789,8 @@ def run_sparse_round(dev, codec, state, before, survivors, it, mask):
     return launches, secs, dict(
         codec=codec, blocks=blocks, sels=sels, masks=masks,
         broadcast=broadcast, ups=ups, agg=agg, idx_list=idx_list, new=new,
-        before=before, past_mean=past_mean, alpha=quant0.alpha.copy())
+        before=before, past_mean=past_mean, alpha=quant0.alpha.copy(),
+        packer=packer)
 
 
 def check_sparse_round(dev, survivors, it, r):
@@ -813,7 +844,12 @@ def run_sparse_path(dev, model, name, mask, rounds):
     clients, whose residual memory carries from round to round.  Checks
     each round and its launches: every client's encrypt is one launch (the
     single mask's add stream, or the double mask), the decrypt one scatter
-    a survivor.  Returns the first round's launches and the results."""
+    a survivor; every client's locations encoded and decoded by the
+    native packer (csrc/packing.cpp).  Returns the first round's launches
+    and the results."""
+    if not native.available():
+        raise AssertionError(f"path {name}: the native packer did not "
+                             f"build: {native.last_error('packing')}")
     codec = WeightsCodec(model.params_to_flax(), device=dev)
     state = {"blocks": make_clients(dev, codec, N_CLIENTS, mask=mask),
              "sparsifiers": [Sparsifier(codec, SPARSITY)
@@ -838,11 +874,16 @@ def run_sparse_path(dev, model, name, mask, rounds):
         if launches != want:
             raise AssertionError(f"path {name} iter {it}: launches "
                                  f"{launches}, expected {want}")
+        packed = {"pack": N_CLIENTS, "unpack": N_CLIENTS}
+        if r["packer"] != packed:
+            raise AssertionError(f"path {name} iter {it}: native packer "
+                                 f"calls {r['packer']}, expected {packed}")
         worst = check_sparse_round(dev, survivors, it, r)
         print(f"path {name} iter={it} survivors={len(survivors)}/{N_CLIENTS}"
               f": masking {mask!r} -> choice {choice!r}, {N_COMPACT} compact "
               f"lanes a client, kernel launches {sum(launches.values())} "
-              f"({launches}), decrypted == densified sum(q) mod 2^{INT_BITS},"
+              f"({launches}), locations through the native packer "
+              f"({r['packer']}), decrypted == densified sum(q) mod 2^{INT_BITS},"
               f" new model within {worst:.3f} steps of what the clients sent;"
               f" host time by phase (first run): " + ", ".join(
                   f"{k} {v * 1e3:.1f} ms" for k, v in secs.items()))
@@ -1851,21 +1892,27 @@ def tcp_child(role: str, broker: str, workdir: str) -> int:
                    past_mean=rec["past_mean"][0], alpha=rec["alpha"][0])
     torch.cuda.synchronize()
     out.update(round_s=time.perf_counter() - t0,
-               launches=dict(fm.mode_launches), stats=fed.stats.summary())
+               launches=dict(fm.mode_launches), stats=fed.stats.summary(),
+               packer=dict(native.calls))
     torch.save(out, Path(workdir) / f"{role}.pt")
     fed.close()
     return 0
 
 
 def run_tcp_round(dev, model):
-    """The dense round across processes: the port's FedBroker on
-    127.0.0.1 in this process, then the guest, one host and the arbiter as
-    three child processes (this script with --tcp-role), each on cuda:0
-    with the kernels already built.  A child that fails, or the three
-    running past 600 s, fails the run; every child is stopped."""
+    """The dense round across processes: the port's native FedBroker
+    (csrc/fedbroker.cpp, a child of this process) on 127.0.0.1, then the
+    guest, one host and the arbiter as three child processes (this script
+    with --tcp-role), each on cuda:0 with the kernels already built; each
+    client's upload packed and the arbiter's two unpacked by the native
+    packer.  A child that fails, or the three running past 600 s, fails
+    the run; every child is stopped."""
     codec = WeightsCodec(model.params_to_flax(), device=dev)
     flats = client_flats(dev, codec, model, 2)
-    broker = FedBroker("127.0.0.1", 0)
+    broker = FedBroker("127.0.0.1", 0, native=True)
+    if broker._proc is None:
+        broker.close()
+        raise AssertionError("TCP round: the FedBroker is not the native one")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_tcp_")
     procs = []
     try:
@@ -1922,6 +1969,13 @@ def run_tcp_round(dev, model):
                                  f"{res[role]['launches']}, expected {double}")
     if any(res["arbiter"]["launches"].values()):
         raise AssertionError("TCP round: the arbiter launched a kernel")
+    packer = {role: res[role]["packer"] for role in res}
+    if packer != {"guest": {"pack": 1, "unpack": 0},
+                  "host": {"pack": 1, "unpack": 0},
+                  "arbiter": {"pack": 0, "unpack": 2}}:
+        raise AssertionError(f"TCP round: native packer calls {packer}, "
+                             "expected one pack at each client and two "
+                             "unpacks at the arbiter")
     if not torch.equal(g["new"], h["new"]):
         raise AssertionError("TCP round: the two clients' new models differ")
     expect, step = expected_model(codec, g["past_mean"], g["alpha"], flats)
@@ -2695,6 +2749,43 @@ def client_tasks(n):
     return ["guest_0"] + [f"host_{h}" for h in range(n - 1)]
 
 
+def check_native_broker(what, job):
+    """A job's __job__ record (or its summary's "job") names the native
+    broker."""
+    if job.get("broker") != "native":
+        raise AssertionError(f"{what}: the job ran over the "
+                             f"{job.get('broker')!r} broker, not the native "
+                             "one")
+
+
+def port_brokers():
+    """PIDs of the live processes that run the port's native broker
+    binary (a zombie's command line is empty)."""
+    binary = str(_build.build_dir() / "fedbroker").encode()
+    pids = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                if f.read().split(b"\0")[0] == binary:
+                    pids.append(int(d))
+        except OSError:
+            continue
+    return pids
+
+
+def check_no_brokers(what, grace=5.0):
+    """No port fedbroker process outlives `what` (one that is exiting has
+    `grace` seconds)."""
+    deadline = time.monotonic() + grace
+    while left := port_brokers():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: the port's fedbroker still runs "
+                                 f"as PIDs {left}")
+        time.sleep(0.1)
+
+
 def check_job(what, rec, outs, n, iters):
     """Every task `success` in the registry; every client's parameters on
     the card, its process 2 double mask launches an iteration and no other
@@ -2748,6 +2839,7 @@ def run_runtime_processes(root, env, in_process):
     out, secs = run_cli(["submit", "-c", str(path), "--processes",
                          "--checkpoint-dir", str(ckpt_dir), "--publish",
                          "phase12", "--json"], env)
+    check_native_broker("submit --processes", out["job"])
     rec, outs = read_job(root, out["job"])
     check_job("submit --processes", rec, outs, n, iters)
     ckpts = [load_checkpoint(str(ckpt_dir / f"{t}.ckpt"))
@@ -2827,6 +2919,7 @@ def run_runtime_dsl(dev, root, env):
     out, secs = run_cli(["submit-dsl", "-d", str(
         ROOT / "examples" / "dsl" / "train_job_dsl.json"), "-c",
         str(conf_path), "--processes", "--json"], env)
+    check_native_broker("submit-dsl --processes", out["job"])
     rec, outs = read_job(root, out["job"])
     check_job("submit-dsl --processes", rec, outs, n, iters)
     losses = outs["arbiter_0"]["homo_nn_0"]["loss_history"]
@@ -2922,6 +3015,7 @@ def run_server_job(client, root, env, url, dsl, c):
                              f"{c['losses']} (rtol {SERVER_LOSS_RTOL})")
     tasks = tasks_of(n)
     result = client.job_result(job_id)["result"]
+    check_native_broker("serve", result["job"])
     summary = result["arbiter_0"]["homo_nn_0"]["loss_history"]
     view = client._call("POST", "/v1/tracking/job/data_view",
                         {"job_id": job_id})
@@ -3013,6 +3107,8 @@ def run_server_queue(client, proc, root, env, url, dsl, c):
                                  f"{recs[k]['tasks']}: it started")
     rec, outs = read_job(root, recs["A"])
     check_job("queue job A", rec, outs, 2, 1)
+    with open(root / "jobs" / a / "result.json") as f:
+        check_native_broker("queue job A", json.load(f)["job"])
     return dict(ids=(a, b, c_id), secs=secs, queue_s=queue_s,
                 stop_s=stop_s, queue=queue, outs=outs)
 
@@ -3045,10 +3141,17 @@ def run_cluster(root, env):
         "broker": {"host": "127.0.0.1", "port": 0},
         "job": {"id": "phase13", "config": job_path.name},
         "parties": parties, "python": sys.executable}))
-    rcs, secs = run_cli(["cluster", "-c", str(conf_path), "--run-local",
-                         "--timeout", str(RUNTIME_TIMEOUT_S - 60)], env)
+    text, secs = run_cli_text(["cluster", "-c", str(conf_path),
+                               "--run-local", "--timeout",
+                               str(RUNTIME_TIMEOUT_S - 60)], env)
+    lines = text.strip().splitlines()
+    rcs = json.loads(lines[-1])
     if rcs != dict.fromkeys(tasks_of(n), 0):
         raise AssertionError(f"cluster --run-local: return codes {rcs}")
+    if not any(ln.startswith("cluster: the broker (native)")
+               for ln in lines):
+        raise AssertionError("cluster --run-local: the broker was not the "
+                             f"native one: {lines[:-1]}")
     outs = {}
     for task in tasks_of(n):
         with open(root / f"cluster_{task}.out", "rb") as f:
@@ -3089,19 +3192,20 @@ def print_server_profile(b, c, smi):
             for what, ph in rows))
 
 
-def run_server_phase(root, env, c, smi):
+def run_server_phase(root, env, c, smi, server):
     """Phase 13, over phase 12's stores and DataIO tables (c: phase 12
-    (c)'s job): (a)-(c) the job server, (d) the cluster.  Returns the mask
-    kernel's double launches in the server's party processes and in the
-    cluster's."""
+    (c)'s job; server: start_server's, started beside it): (a)-(c) the job
+    server, (d) the cluster.  Returns the mask kernel's double launches in
+    the server's party processes and in the cluster's."""
     with open(ROOT / "examples" / "dsl" / "train_job_dsl.json") as f:
         dsl = json.load(f)
-    proc, url, start_s = start_server(root, env)
+    proc, url, start_s = server
     try:
         client = FlasheClient(f"http://{url}")
         print(f"python -m flashe_tpu_torch serve --port 0 "
-              f"(FLASHE_MAX_CONCURRENT_JOB_RUN=1): {start_s:.2f} s to its "
-              f"address, http://{url}, {client.version()}")
+              f"(FLASHE_MAX_CONCURRENT_JOB_RUN=1, started beside phase 12 "
+              f"(c)): {start_s:.2f} s to its address, http://{url}, "
+              f"{client.version()}")
         b = run_server_job(client, root, env, url, dsl, c)
         print(f"the DSL job of phase 12 (c) submitted over HTTP "
               f"(FlasheClient.submit_job, wait_job): {b['secs']:.2f} s for "
@@ -3172,13 +3276,14 @@ def run_runtime_phase(dev, in_process, smi):
     torch.cuda.empty_cache()
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_runtime_"))
     env = runtime_env(root)
+    servers = []
     try:
         a = run_runtime_processes(root, env, in_process)
         print(f"python -m flashe_tpu_torch submit -c examples/configs/"
               f"{RUNTIME_CONFIG} --processes --checkpoint-dir D --publish "
               f"phase12 --json: {a['secs']:.2f} s for {a['n'] + 1} processes "
               f"(guest, {a['n'] - 1} hosts, arbiter) on one card over the "
-              f"TCP broker; every task success, every client on "
+              f"native TCP broker; every task success, every client on "
               f"{a['outs']['guest_0']['device']}, 2 x {a['iters']} double "
               f"launches at each client and none at the arbiter, the "
               f"{a['n']} checkpoints equal bit for bit; loss_per_round "
@@ -3197,13 +3302,23 @@ def run_runtime_phase(dev, in_process, smi):
               f"{sum(peaks) / 2**30:.3f} GiB summed over "
               f"{len(peaks)}, {in_process['peak_bytes'] / 2**30:.3f} GiB "
               f"for phase 10's in-process run of the same configuration")
-        out, secs, err = run_runtime_predict(dev, env, a)
+        # (b) and phase 13's server start run beside (c), whose party
+        # processes spend most of its time starting
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            predicted = pool.submit(run_runtime_predict, dev, env, a)
+            serving = pool.submit(start_server, root, env)
+            try:
+                c = run_runtime_dsl(dev, root, env)
+            finally:
+                try:
+                    servers.append(serving.result())
+                finally:
+                    out, secs, err = predicted.result()
         print(f"python -m flashe_tpu_torch predict -c examples/configs/"
-              f"{RUNTIME_CONFIG} --model phase12: {secs:.2f} s, "
+              f"{RUNTIME_CONFIG} --model phase12 (beside (c)): {secs:.2f} s, "
               f"aggregate_iter {out['aggregate_iter']}, {out['n']} samples "
               f"on {out['device']}, scores within {err:.2e} of the guest's "
               f"checkpoint loaded here (limit {PREDICT_ATOL})")
-        c = run_runtime_dsl(dev, root, env)
         acc = [round(c["outs"][t]["evaluation_0"]["accuracy"], 4)
                for t in client_tasks(c["n"])]
         print(f"python -m flashe_tpu_torch submit-dsl -d examples/dsl/"
@@ -3218,11 +3333,17 @@ def run_runtime_phase(dev, in_process, smi):
         launches = {"processes": sum(o["mask_launches"]["double"]
                                      for r in (a, c)
                                      for o in r["outs"].values())}
+        check_no_brokers("phase 12")
         t0 = time.perf_counter()
-        launches.update(run_server_phase(root, env, c, smi))
-        print(f"phase 13: {time.perf_counter() - t0:.2f} s (host clock)")
+        launches.update(run_server_phase(root, env, c, smi, servers[0]))
+        check_no_brokers("phase 13")
+        print(f"phase 13: {time.perf_counter() - t0:.2f} s (host clock); "
+              "every job and the cluster over the native broker, no port "
+              "fedbroker process left after phases 12 and 13")
         return launches
     finally:
+        for proc, _, _ in servers:
+            stop_server(proc, 60)
         stop_jobs(root)
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4211,6 +4332,207 @@ def run_bench_phase(dev, keypair, smi):
     return runs, secs
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the native layer (csrc/packing.cpp, csrc/fedbroker.cpp), host code
+# ---------------------------------------------------------------------------
+
+NATIVE_REPS = 5  # the packers' times: the median of 5 calls
+EXCHANGE_REPEATS = 3  # the brokers alternate, native first
+
+
+def median_s(fn, reps=NATIVE_REPS):
+    """fn's last result and the median seconds of `reps` calls (host
+    clock)."""
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        secs.append(time.perf_counter() - t0)
+    return out, statistics.median(secs)
+
+
+def native_pack_shapes(dev):
+    """The wire's arrays on the slice's paths, from the seed: ten clients'
+    path-S locations (each a top-10% by layer of FemnistCNN's 1,206,590
+    lanes, 120,655 locations of 21 bits), one 20-bit upload of 1,206,590
+    lanes and one path-B upload (201,099 lanes x 4 limbs at 120 bits).
+    Returns {name: (the arrays, int_bits)}."""
+    codec = WeightsCodec(FemnistCNN(device=dev).params_to_flax(), device=dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 18)
+    locs = []
+    for _ in range(N_CLIENTS):
+        res = Sparsifier(codec, SPARSITY).sparsify(
+            torch.randn(codec.total, generator=gen, device=dev))
+        locs.append(res.locations.cpu().numpy().astype(np.uint32))
+    if {len(v) for v in locs} != {N_COMPACT}:
+        raise AssertionError(f"phase 18: location counts "
+                             f"{sorted({len(v) for v in locs})}")
+    rng = np.random.default_rng(SEED + 18)
+    upload = rng.integers(0, 1 << INT_BITS, N_FEMNIST, dtype=np.uint32)
+    limbs = rng.integers(0, 1 << 32, (B_LANES, lanes.nlimbs_for(B_BITS)),
+                         dtype=np.uint32)
+    limbs[:, -1] &= np.uint32((1 << (B_BITS - 96)) - 1)
+    return {"path-S locations x 10": (locs, N_FEMNIST.bit_length()),
+            "20-bit upload": ([upload], INT_BITS),
+            "path-B upload": ([limbs], B_BITS)}
+
+
+def run_native_packing(dev):
+    """(a) Each shape packed and unpacked by the native packer and by the
+    numpy path: the bytes equal, the unpacked arrays the inputs; the
+    median of NATIVE_REPS calls of each."""
+    rows = {}
+    for name, (arrays, bits) in native_pack_shapes(dev).items():
+        nat, nat_s = median_s(lambda: [native.pack_lanes(a, bits)
+                                       for a in arrays])
+        ref, np_s = median_s(lambda: [packops.pack_lanes_np(a, bits)
+                                      for a in arrays])
+        if nat != ref:
+            raise AssertionError(f"phase 18: {name}: the native packer's "
+                                 "bytes differ from the numpy path's")
+        back, nat_un_s = median_s(lambda: [
+            native.unpack_lanes(d, a.shape[0], bits)
+            for d, a in zip(nat, arrays)])
+        ref_back, np_un_s = median_s(lambda: [
+            packops.unpack_lanes_np(d, a.shape[0], bits)
+            for d, a in zip(nat, arrays)])
+        for a, b, c in zip(arrays, back, ref_back):
+            if not (np.array_equal(a, b) and np.array_equal(a, c)):
+                raise AssertionError(f"phase 18: {name}: unpack does not "
+                                     "give the lanes back")
+        rows[name] = {"arrays": len(arrays), "lanes": int(arrays[0].shape[0]),
+                      "int_bits": bits,
+                      "bytes": sum(len(d) for d in nat),
+                      "pack_native_ms": nat_s * 1e3,
+                      "pack_numpy_ms": np_s * 1e3,
+                      "unpack_native_ms": nat_un_s * 1e3,
+                      "unpack_numpy_ms": np_un_s * 1e3}
+    return rows
+
+
+def start_broker_cli(python):
+    """`python -m flashe_tpu_torch broker --port 0` (with --python: the
+    Python broker), a process of its own."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "flashe_tpu_torch", "broker", "--host",
+         "127.0.0.1", "--port", "0"] + (["--python"] if python else []),
+        cwd=ROOT, stdout=subprocess.PIPE, text=True)
+
+
+def exchange_once(feds, parties, aggs, tag):
+    """The arbiter (the last of feds) sends receiver i its aggregate
+    aggs[i]; each receiver waits in get() from before the first remote.
+    Every receiver's array must equal what was sent.  Returns the seconds
+    from the first remote to the last get's return."""
+    arb, receivers = feds[-1], feds[:-1]
+    names = [f"arbiter_to_{p.role}" for p in parties[:-1]]
+    ends, bad = [None] * len(receivers), []
+    ready = threading.Barrier(len(receivers) + 1)
+
+    def receive(i):
+        ready.wait()
+        got = receivers[i].get(names[i], tag, parties[-1], timeout=60)
+        ends[i] = time.perf_counter()
+        if not np.array_equal(got, aggs[i]):
+            bad.append(i)
+
+    threads = [threading.Thread(target=receive, args=(i,), daemon=True)
+               for i in range(len(receivers))]
+    for t in threads:
+        t.start()
+    ready.wait()
+    t0 = time.perf_counter()
+    for i, p in enumerate(parties[:-1]):
+        arb.remote(aggs[i], names[i], tag, p)
+    for t in threads:
+        t.join(timeout=120)
+    if any(t.is_alive() for t in threads) or bad or None in ends:
+        raise AssertionError(f"phase 18: exchange {tag}: receivers {bad} got "
+                             "another array, or a get did not return")
+    return max(ends) - t0
+
+
+def run_native_exchange(procs):
+    """(b) Through `broker --port 0` and `broker --python --port 0`
+    (procs: start_broker_cli's, by kind), the arbiter sends ten FemnistCNN
+    aggregates (1,206,590 int32 lanes each, 2 fragments) to ten receiving
+    parties (one thread each in this process), the brokers in turns for
+    EXCHANGE_REPEATS rounds after one warm-up round each.  Each broker is
+    stopped with SIGTERM and must exit 0."""
+    feds = {}
+    try:
+        ports = {}
+        for kind, proc in procs.items():
+            line = proc.stdout.readline().split()
+            if len(line) != 3 or line[0] != "PORT" or line[2] != kind:
+                raise AssertionError(f"phase 18: broker {kind}: printed "
+                                     f"{line}")
+            ports[kind] = int(line[1])
+        parties = default_parties(N_CLIENTS - 1)
+        auth = HomoTransferVariables.authorization()
+        for kind, port in ports.items():
+            feds[kind] = [TcpFederation(("127.0.0.1", port),
+                                        f"phase18-{kind}", p, parties, auth)
+                          for p in parties]
+        rng = np.random.default_rng(SEED + 19)
+        aggs = [rng.integers(-2**31, 2**31, N_FEMNIST, dtype=np.int32)
+                for _ in range(N_CLIENTS)]
+        for kind in procs:  # one untimed round: the connections' warm-up
+            exchange_once(feds[kind], parties, aggs, "warm-up")
+        secs = {kind: [] for kind in procs}
+        for rep in range(EXCHANGE_REPEATS):
+            for kind in procs:
+                secs[kind].append(exchange_once(feds[kind], parties, aggs,
+                                                f"rep{rep}"))
+        frames = -(-len(pickle.dumps(aggs[0], pickle.HIGHEST_PROTOCOL))
+                   // _FRAGMENT)
+    finally:
+        for fl in feds.values():
+            for fed in fl:
+                fed.close()
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.terminate()
+        rcs = {kind: proc.wait(timeout=30) for kind, proc in procs.items()}
+    if rcs != {"native": 0, "python": 0}:
+        raise AssertionError(f"phase 18: the brokers exited {rcs}")
+    return {"seconds": secs, "median_ms": {
+        k: statistics.median(v) * 1e3 for k, v in secs.items()},
+        "fragments_per_aggregate": frames}
+
+
+def run_native_phase(dev, smi):
+    """Phase 18: (a) the packers, (b) the two brokers; no port fedbroker
+    process is left after it."""
+    t0 = time.perf_counter()
+    packing = run_native_packing(dev)
+    for name, r in packing.items():
+        print(f"phase 18 (a): {name} ({r['arrays']} x {r['lanes']:,} lanes "
+              f"of {r['int_bits']} bits, {r['bytes']:,} bytes): native bytes "
+              f"== numpy bytes, unpack gives the lanes back; pack native "
+              f"{r['pack_native_ms']:.3f} ms, numpy {r['pack_numpy_ms']:.3f} "
+              f"ms; unpack native {r['unpack_native_ms']:.3f} ms, numpy "
+              f"{r['unpack_numpy_ms']:.3f} ms (median of {NATIVE_REPS}, host "
+              f"clock, {smi})")
+    exchange = run_native_exchange({"native": start_broker_cli(False),
+                                    "python": start_broker_cli(True)})
+    check_no_brokers("phase 18")
+    secs = time.perf_counter() - t0
+    print(f"phase 18 (b): the arbiter to {N_CLIENTS} receivers, one "
+          f"FemnistCNN aggregate each ({N_FEMNIST:,} int32 lanes, "
+          f"{exchange['fragments_per_aggregate']} fragments), first remote "
+          f"to last get: native broker median "
+          f"{exchange['median_ms']['native']:.2f} ms, python broker "
+          f"{exchange['median_ms']['python']:.2f} ms (samples " + ", ".join(
+              f"{k} {[round(v * 1e3, 2) for v in vs]}"
+              for k, vs in exchange["seconds"].items())
+          + f"; brokers in turns, host clock, {smi}); every receiver's "
+          f"array equal; both brokers exited 0 on SIGTERM, no port "
+          f"fedbroker process left; phase 18 {secs:.2f} s")
+    return {"packing": packing, "exchange": exchange, "seconds": secs,
+            "card": smi}
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4503,8 +4825,9 @@ def main(argv=None) -> int:
           f"guest " + ", ".join(f"{k} {v / 1e3:.3f} s"
                                 for k, v in recs[0]["phases"].items()))
     tcp_s, tcp_worst, tcp, packed = run_tcp_round(dev, model)
-    print(f"TCP round across processes (FedBroker on 127.0.0.1, guest, host "
-          f"and arbiter each a process on cuda:0, wire_pack): {tcp_s:.2f} s "
+    print(f"TCP round across processes (the native FedBroker on 127.0.0.1, "
+          f"guest, host and arbiter each a process on cuda:0, wire_pack "
+          f"through the native packer): {tcp_s:.2f} s "
           f"for the three, round {tcp['guest']['round_s'] * 1e3:.1f} ms at "
           f"the guest after a {tcp['guest']['setup_s']:.2f} s session setup;"
           f" decrypted == sum(q) mod 2^{INT_BITS} at both clients, same "
@@ -4588,6 +4911,11 @@ def main(argv=None) -> int:
               f"and loads an element), plain torch {t['plain_ms']:.4f} ms, "
               f"max |kernel - plain| {t['err']}")
     stamp("phase 17 (the benchmark harness)")
+
+    # the native layer: the wire packer and the two brokers
+    native_layer = run_native_phase(dev, smi)
+    print(json.dumps({"native_layer": native_layer}))
+    stamp("phase 18 (the native layer)")
 
     def trained(key):
         return sum(launches[key] for launches in train_launches.values())

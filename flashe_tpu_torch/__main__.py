@@ -14,8 +14,9 @@ FATE-style DSL and job conf pair runs through `submit-dsl` (a Keras
 `nn_define` interpreted directly).  Without --processes a job runs in this
 process, the guest, the hosts and the arbiter one thread each over the
 in-memory federation (runtime/simulate.run_roles); with --processes each
-party is an OS process of its own over the port's TCP broker
-(runtime/job.py).  Every party runs on the card, or on the CPU with --cpu;
+party is an OS process of its own over the port's native C++ TCP broker
+(runtime/job.py; csrc/fedbroker.cpp, built with g++ at first use, the
+Python broker where it cannot be built).  Every party runs on the card, or on the CPU with --cpu;
 every command takes --cpu, and none carries on on the CPU without it.
 `submit` prints the arbiter's mean loss per round and the guest's phase
 profile, or both as one JSON line with --json (with --processes also the
@@ -34,8 +35,8 @@ not the JAX package's; runtime/model_manager.py).  `board`, `tracking` and
 a running job server instead (runtime/client.py); `serve` runs one
 (runtime/server.py: each submitted DSL job one process a party, on the card
 unless `serve --cpu`), and `queue` reads its job queue.  The cluster
-deployment (runtime/cluster.py): `broker` runs the federation exchange,
-`party` one party of a job against it, `cluster` plans a cluster conf or
+deployment (runtime/cluster.py): `broker` runs the federation exchange
+(the native C++ broker, or the Python one with --python), `party` one party of a job against it, `cluster` plans a cluster conf or
 runs it on this machine.  `storage-node` runs a persistent storage node
 (data/remote_kv.py: the native C++ server of csrc/kvserver.cpp, or the
 python one with --python), which sessions bind with
@@ -477,11 +478,12 @@ def cmd_queue(args) -> int:
 
 def cmd_broker(args) -> int:
     """Run the federation exchange standalone (proxy/route-table
-    analogue): the port's Python FedBroker (--python changes nothing;
-    the native broker waits for native/'s bindings)."""
+    analogue): the port's native C++ broker, or with --python its Python
+    one."""
     from flashe_tpu_torch.runtime.cluster import run_broker
 
-    run_broker(args.host, args.port)
+    run_broker(args.host, args.port,
+               native=False if args.python else "auto")
     return 0
 
 
@@ -707,8 +709,8 @@ def main(argv=None) -> int:
     p.add_argument("--json", action="store_true",
                    help="machine-readable result on stdout")
     p.add_argument("--processes", action="store_true",
-                   help="one OS process per party over the TCP federation "
-                        "broker")
+                   help="one OS process per party over the native "
+                        "federation broker")
     p.add_argument("--checkpoint-dir",
                    help="with --processes: each client saves its final "
                         "model there (<role>_<id>.ckpt)")
@@ -725,8 +727,8 @@ def main(argv=None) -> int:
     p.add_argument("-c", "--config", required=True,
                    help="job conf JSON (train_job_conf.json)")
     p.add_argument("--processes", action="store_true",
-                   help="one OS process per party over the TCP federation "
-                        "broker")
+                   help="one OS process per party over the native "
+                        "federation broker")
     p.add_argument("--json", action="store_true")
     p.add_argument("--no-wait", action="store_true",
                    help="with --server: return the job id immediately")
@@ -755,7 +757,8 @@ def main(argv=None) -> int:
     p.add_argument("--port", type=int, default=9370,
                    help="0 = ephemeral (the bound port is printed)")
     p.add_argument("--python", action="store_true",
-                   help="the pure-Python broker (the port's only one)")
+                   help="force the pure-Python broker instead of the native "
+                        "C++ one")
 
     p = command("party", cmd_party,
                 "join a multi-host job as one party (run on each silo's "

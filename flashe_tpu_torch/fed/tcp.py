@@ -8,9 +8,12 @@ a compact exchange:
 
 - one broker (the "exchange") listens on a host:port; every party connects
   and registers its (role, party_id) — the analogue of the proxy's route
-  table.  The port's broker is the JAX package's pure-Python one, a thread
-  in the process that starts it; the JAX package's native C++ broker
-  (native/fedbroker.cpp) speaks the same wire protocol and is not ported,
+  table.  The broker is **native C++** like the reference's WAN hop: the
+  port's own csrc/fedbroker.cpp, built on demand by
+  flashe_tpu_torch/native.py and run as a child process of the one that
+  starts it; a pure-Python broker speaking the identical wire protocol (a
+  thread of that process) remains as the opt-out and the no-compiler
+  fallback,
 - frames are length-prefixed with a fixed binary envelope
   (op, dst role, dst party id) so the broker routes raw bytes without
   deserializing anything; message metadata (name, tag, src, fragment
@@ -34,6 +37,8 @@ Wire protocol (all integers big-endian):
   op 0 REGISTER (body empty, role/party = self)
   op 1 DATA     (role/party = destination; body = pickled metadata dict
                  {name, tag, src, frag, nfrag, payload})
+A frame is at most 64 MB (the native broker's kMaxFrame; the 4 MB
+fragments stay far below it): a sender refuses a longer one.
 """
 
 from __future__ import annotations
@@ -41,14 +46,17 @@ from __future__ import annotations
 import pickle
 import socket
 import struct
+import subprocess
 import threading
 from typing import Any, Dict, Tuple
 
+from flashe_tpu_torch import native as _native
 from flashe_tpu_torch.fed.transport import Federation, Party
 
 __all__ = ["FedBroker", "TcpFederation"]
 
 _FRAGMENT = 0x3FFF80  # ~4MB, the reference's splitable fragment size
+_MAX_FRAME = 1 << 26  # csrc/fedbroker.cpp's kMaxFrame
 _REGISTER, _DATA = 0, 1
 
 
@@ -67,6 +75,11 @@ def _parse_envelope(frame) -> Tuple[int, Tuple[str, int], int]:
 
 
 def _send_frame(sock: socket.socket, frame: bytes, lock: threading.Lock):
+    if len(frame) > _MAX_FRAME:
+        # the native broker would drop the connection, and the receiver
+        # would wait for a frame that never comes
+        raise ValueError(f"a frame of {len(frame)} bytes exceeds the "
+                         f"broker's {_MAX_FRAME}")
     with lock:
         sock.sendall(struct.pack("!Q", len(frame)) + frame)
 
@@ -96,11 +109,59 @@ def _recv_exact(sock, n):
 
 class FedBroker:
     """Central exchange: routes DATA frames to the registered destination
-    party, buffering frames for parties that have not connected yet.  It
-    runs as daemon threads of the process that makes it; `close()` stops
-    it."""
+    party, buffering frames for parties that have not connected yet.
 
-    def __init__(self, host: str = "127.0.0.1", port: int = 0):
+    Prefers the native C++ broker executable (csrc/fedbroker.cpp), a child
+    process that ends with this object's `close()` or, at the latest, with
+    the process that made it (it holds the child's standard input);
+    ``native=False`` runs the in-process Python loop, ``native=True``
+    requires the binary.  ``"auto"`` falls back to the Python loop only
+    where the binary cannot be built or started.  `native` says which
+    runs.
+    """
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 native: bool | str = "auto"):
+        self._proc = None
+        self._srv = None
+        if native in ("auto", True):
+            if self._start_native(host, port):
+                return
+            if native is True:
+                raise RuntimeError(
+                    "native fedbroker unavailable: "
+                    f"{_native.last_error('fedbroker') or 'it did not start'}")
+        self._start_python_broker(host, port)
+
+    @property
+    def native(self) -> bool:
+        return self._proc is not None
+
+    def _start_native(self, host, port) -> bool:
+        path = _native.broker_binary()
+        if path is None:
+            return False
+        try:
+            proc = subprocess.Popen([path, str(port), host, "--lifeline"],
+                                    stdin=subprocess.PIPE,
+                                    stdout=subprocess.PIPE)
+        except OSError:  # e.g. a binary built for another machine
+            return False
+        line = proc.stdout.readline().decode()
+        # it prints nothing more: the pipe is never read again
+        proc.stdout.close()
+        if not line.startswith("PORT "):
+            proc.terminate()
+            proc.wait()
+            proc.stdin.close()
+            return False
+        self._proc = proc
+        self.address = (host, int(line.split()[1]))
+        return True
+
+    # ---- pure-Python broker (same wire protocol) ----
+
+    def _start_python_broker(self, host, port):
         self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._srv.bind((host, port))
@@ -159,6 +220,11 @@ class FedBroker:
                     self._pending.setdefault(dst, []).append(frame)
 
     def close(self):
+        if self._proc is not None:
+            self._proc.terminate()
+            self._proc.wait()
+            self._proc.stdin.close()
+            return
         self._stop.set()
         self._srv.close()
 

@@ -4,17 +4,24 @@ strings with no inflation.
 Bits of element i occupy positions [B - (i+1)*int_bits, B - i*int_bits) of
 a ceil(B/8)-byte big-endian string, B = n * int_bits: the byte
 serialization of the reference's one big int a layer, element 0 most
-significant.  The wire is host work, so this is numpy on the host; the JAX
-package's optional native fast path is not carried over.
+significant.  The wire is host work: `pack_lanes` and `unpack_lanes` go
+through the port's native packer (csrc/packing.cpp, built with g++ at first
+use by flashe_tpu_torch/native.py) when it is available, as the JAX
+package's go through native/packing.cpp.  The numpy path (`pack_lanes_np`,
+`unpack_lanes_np`) is the plain version the native one is held against,
+byte for byte, and the fallback where no compiler is at hand.  Only the
+low int_bits bits of each element are packed, on either path.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from flashe_tpu_torch import native
 from flashe_tpu_torch.ops.lanes import nlimbs_for
 
-__all__ = ["pack_lanes", "unpack_lanes", "packed_nbytes"]
+__all__ = ["pack_lanes", "unpack_lanes", "pack_lanes_np", "unpack_lanes_np",
+           "packed_nbytes"]
 
 
 def packed_nbytes(n: int, int_bits: int) -> int:
@@ -38,6 +45,18 @@ def _lane_bits_msb_first(lanes: np.ndarray, int_bits: int) -> np.ndarray:
 def pack_lanes(lanes: np.ndarray, int_bits: int) -> bytes:
     """Lane array -> big-endian packed bytes (the reference's big-int
     layout)."""
+    fast = native.pack_lanes(lanes, int_bits)
+    return fast if fast is not None else pack_lanes_np(lanes, int_bits)
+
+
+def unpack_lanes(data: bytes, n: int, int_bits: int) -> np.ndarray:
+    """Packed bytes -> (n,) uint32 (or (n, L) limb) lane array."""
+    fast = native.unpack_lanes(data, n, int_bits)
+    return fast if fast is not None else unpack_lanes_np(data, n, int_bits)
+
+
+def pack_lanes_np(lanes: np.ndarray, int_bits: int) -> bytes:
+    """pack_lanes in numpy: the plain version."""
     bits = _lane_bits_msb_first(lanes, int_bits).reshape(-1)
     pad = (-bits.size) % 8
     if pad:
@@ -45,8 +64,8 @@ def pack_lanes(lanes: np.ndarray, int_bits: int) -> bytes:
     return np.packbits(bits).tobytes()
 
 
-def unpack_lanes(data: bytes, n: int, int_bits: int) -> np.ndarray:
-    """Packed bytes -> (n,) uint32 (or (n, L) limb) lane array."""
+def unpack_lanes_np(data: bytes, n: int, int_bits: int) -> np.ndarray:
+    """unpack_lanes in numpy: the plain version."""
     bits = np.unpackbits(np.frombuffer(data, np.uint8))
     bits = bits[len(bits) - n * int_bits:].reshape(n, int_bits)
     nl = nlimbs_for(int_bits)

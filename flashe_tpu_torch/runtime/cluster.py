@@ -9,8 +9,8 @@ route_table.json; deployment/modify_fate_configs.py:21-57).  Here a
 deployment is three commands instead of a provisioning pipeline:
 
 - ``python -m flashe_tpu_torch broker`` on one machine — the exchange every
-  party dials (the route-table/proxy analogue; the port's Python
-  FedBroker, fed/tcp.py),
+  party dials (the route-table/proxy analogue; the port's native C++
+  FedBroker, fed/tcp.py, or with ``--python`` the Python one),
 - ``python -m flashe_tpu_torch party --broker HOST:PORT --role ...
   --party-id N --job-id JOB -d dsl.json -c conf.json`` on each silo —
   joins the federation and runs that party's task executor against its
@@ -36,6 +36,7 @@ from __future__ import annotations
 import json
 import os
 import shlex
+import signal
 import subprocess
 import sys
 import time
@@ -136,23 +137,34 @@ def run_party(cfg: dict) -> dict:
     return run_task(cfg)
 
 
-def run_broker(host: str, port: int) -> None:
-    """Start the exchange and block until interrupted (broker CLI body).
+def run_broker(host: str, port: int, native: bool | str = "auto") -> None:
+    """Start the exchange and block until interrupted or terminated (broker
+    CLI body); `native` as FedBroker's.
 
-    Prints ``PORT <n>`` on stdout once listening so wrappers (tests, the
-    cluster launcher) can discover an ephemeral port.
+    Prints ``PORT <n> native`` (or ``python``) on stdout once listening so
+    wrappers (tests, the cluster launcher) can discover an ephemeral port
+    and the broker that runs.  SIGTERM ends it as an interrupt does: the
+    native broker's child process is stopped and reaped before this one
+    exits.
     """
     from flashe_tpu_torch.fed.tcp import FedBroker
 
-    broker = FedBroker(host=host, port=port)
-    print(f"PORT {broker.address[1]}", flush=True)
+    broker = FedBroker(host=host, port=port, native=native)
+    previous = signal.signal(signal.SIGTERM, _exit_on_sigterm)
     try:
+        print(f"PORT {broker.address[1]} "
+              f"{'native' if broker.native else 'python'}", flush=True)
         while True:
             time.sleep(3600)
-    except KeyboardInterrupt:
+    except (KeyboardInterrupt, SystemExit):
         pass
     finally:
+        signal.signal(signal.SIGTERM, previous)
         broker.close()
+
+
+def _exit_on_sigterm(signum, frame):
+    raise SystemExit(0)
 
 
 # --------------------------------------------------------------------------
@@ -308,6 +320,8 @@ def run_local(conf: dict, conf_dir: str = ".",
         if not line.startswith("PORT "):
             raise RuntimeError(f"broker failed to start: {line!r}")
         port = int(line.split()[1])
+        print(f"cluster: the broker ({line.split()[2]}) at 127.0.0.1:{port}",
+              flush=True)
         for key, entry in plan.items():
             argv = shlex.split(entry["cmd"])
             argv[argv.index("--broker") + 1] = f"127.0.0.1:{port}"

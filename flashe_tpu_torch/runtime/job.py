@@ -1,13 +1,14 @@
 """Job runner: submit a federated training job across OS processes (port
-of flashe_tpu/runtime/job.py, over the port's Python FedBroker).
+of flashe_tpu/runtime/job.py, over the port's native FedBroker).
 
 The library-sized replacement for fate_flow's JobController/TaskScheduler
 (fate_flow/driver/job_controller.py:42, task_scheduler.py:286-315): start
-the federation broker (fed/tcp.py, a thread of this process), write
-per-party task configs and data shards, spawn one task-executor process
-per (role, party) (`python -m flashe_tpu_torch.runtime.task_executor`, with
-its working directory at the repository root), watch liveness, collect
-outputs.  Kill-job semantics: any dead child aborts the rest (the
+the federation broker (fed/tcp.py: the native C++ exchange, a child
+process that ends with this one, or the Python one where it cannot be
+built), write per-party task configs and data shards, spawn one
+task-executor process per (role, party) (`python -m
+flashe_tpu_torch.runtime.task_executor`, with its working directory at the
+repository root), watch liveness, collect outputs.  Kill-job semantics: any dead child aborts the rest (the
 reference's job_detector / kill-file watch), and a job stopped before it
 starts spawns nothing.
 
@@ -116,7 +117,8 @@ def _run(job_id: str, reg: JobRegistry, workdir: str, roles, make_cfg,
          timeout: float) -> Dict[str, dict]:
     """One executor per (role, party id, extra) in `roles` over a broker
     of this process; make_cfg(i, role, pid, extra, broker) -> its task
-    config.  Returns {"<role>_<pid>": its output} and "__job__"."""
+    config.  Returns {"<role>_<pid>": its output} and "__job__", which
+    names the broker the job ran over ("native" or "python")."""
     if reg.is_canceled(job_id):
         # stopped while queued (create() preserved the cancel): never
         # spawn any executor
@@ -135,7 +137,9 @@ def _run(job_id: str, reg: JobRegistry, workdir: str, roles, make_cfg,
         broker.close()
 
     results = {"__job__": {"job_id": job_id, "workdir": workdir,
-                           "logs": reg.log_dir(job_id)}}
+                           "logs": reg.log_dir(job_id),
+                           "broker": ("native" if broker.native
+                                      else "python")}}
     for key, path in outs.items():
         with open(path, "rb") as f:
             results[key] = pickle.load(f)

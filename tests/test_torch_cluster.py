@@ -12,9 +12,10 @@
   mesh conf asks for the card (tests/test_torch_multihost.py runs one on
   the CPU).
 - `cluster --run-local --cpu` of an MLP FLASHE job (broker, guest, host and
-  arbiter, one process each, on the CPU): every return code 0, the two
-  clients on one model, and losses within 1e-5 relative of the in-process
-  `submit` of the same config.
+  arbiter, one process each, on the CPU): the broker native, every return
+  code 0, the two clients on one model, losses within 1e-5 relative of the
+  in-process `submit` of the same config, and no broker left listening
+  after it returns.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from __future__ import annotations
 import json
 import os
 import pickle
+import socket
 import sys
 
 import numpy as np
@@ -214,8 +216,16 @@ def test_cluster_run_local(tmp_path, monkeypatch, capsys):
         json.dump(conf, f)
     assert cli_main(["cluster", "-c", str(tmp_path / "cluster.json"),
                      "--run-local", "--timeout", "300", "--cpu"]) == 0
-    rcs = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    lines = capsys.readouterr().out.strip().splitlines()
+    rcs = json.loads(lines[-1])
     assert rcs == {"guest_0": 0, "host_0": 0, "arbiter_0": 0}
+    said = [ln for ln in lines if ln.startswith("cluster: the broker")]
+    assert len(said) == 1 and "(native)" in said[0]
+    # the broker process (and its native child) ended with the command:
+    # nothing listens on its port
+    port = int(said[0].rsplit(":", 1)[1])
+    with pytest.raises(ConnectionRefusedError):
+        socket.create_connection(("127.0.0.1", port), timeout=5).close()
     res = {}
     for role, path in outs.items():
         with open(path, "rb") as f:

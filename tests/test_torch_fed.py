@@ -1,11 +1,12 @@
 """PyTorch port: the federation (flashe_tpu_torch/fed) on the CPU.
 
-The port's counterpart of tests/test_tcp_federation.py on its Python broker:
-round trip and 4 MB fragmentation, buffering before registration,
-authorization, transfer stats.  Then what ties the port to the JAX package:
-its AUTH_TABLE is the JAX one key for key, and port and JAX TCP parties
-exchange frames through either package's broker, so the envelope and the
-framing are the same byte for byte.  Last, the launch counters of the
+The port's counterpart of tests/test_tcp_federation.py: round trip and 4 MB
+fragmentation and buffering before registration on its native C++ broker
+and on its Python one, authorization, transfer stats.  Then what ties the
+port to the JAX package: its AUTH_TABLE is the JAX one key for key, and
+port and JAX TCP parties exchange frames through either package's Python
+broker and either package's native one, so the envelope and the framing
+are the same byte for byte.  Last, the launch counters of the
 kernel wrappers stay exact when 8 threads bump them at once.
 """
 
@@ -17,9 +18,11 @@ import threading
 import numpy as np
 import pytest
 
+from flashe_tpu import native as jnative
 from flashe_tpu.fed import tcp as jtcp
 from flashe_tpu.fed import variables as jvariables
 from flashe_tpu.fed.transport import default_parties as jdefault_parties
+from flashe_tpu_torch import native
 from flashe_tpu_torch.fed import consts
 from flashe_tpu_torch.fed.consts import ARBITER, GUEST, HOST
 from flashe_tpu_torch.fed.inmem import InMemBroker, InMemFederation
@@ -42,8 +45,19 @@ def _run(*fns, timeout=60):
         assert not t.is_alive()
 
 
-def test_tcp_roundtrip_and_fragmentation():
-    broker = FedBroker()
+def _broker(use_native):
+    if use_native and native.broker_binary() is None:
+        pytest.skip(f"no compiler for the native broker: "
+                    f"{native.last_error('fedbroker')}")
+    broker = FedBroker(native=use_native)
+    assert broker.native == use_native
+    assert (broker._proc is not None) == use_native
+    return broker
+
+
+@pytest.mark.parametrize("use_native", [False, True])
+def test_tcp_roundtrip_and_fragmentation(use_native):
+    broker = _broker(use_native)
     parties = default_parties(n_hosts=1)
     results = {}
 
@@ -82,10 +96,11 @@ def test_tcp_roundtrip_and_fragmentation():
     assert results["big_sum"] == float(np.arange(2_000_000).sum())
 
 
-def test_tcp_buffered_before_registration():
+@pytest.mark.parametrize("use_native", [False, True])
+def test_tcp_buffered_before_registration(use_native):
     """Frames to a party that has not connected yet are held at the
     exchange and flushed when it registers."""
-    broker = FedBroker()
+    broker = _broker(use_native)
     parties = default_parties(n_hosts=1)
     guest = TcpFederation(broker.address, "jobB", parties[0], parties, AUTH)
     trv_g = HomoTransferVariables(guest)
@@ -194,13 +209,22 @@ def test_auth_table_equals_the_jax_one():
     assert str(Party(HOST, 2)) == "host:2"
 
 
-@pytest.mark.parametrize("broker_side", ["jax", "port"])
+@pytest.mark.parametrize("broker_side",
+                         ["jax", "port", "port_native", "jax_native"])
 def test_port_and_jax_parties_share_a_broker(broker_side):
     """A port TcpFederation and a JAX one exchange objects both ways, through
-    the JAX package's Python broker and through the port's: the envelope,
-    the framing and the fragment metadata are the same byte for byte."""
-    broker = (jtcp.FedBroker(native=False) if broker_side == "jax"
-              else FedBroker())
+    the JAX package's Python broker and through the port's, and through the
+    port's native broker (csrc/fedbroker.cpp) and the JAX package's
+    (native/fedbroker.cpp): the envelope, the framing and the fragment
+    metadata are the same byte for byte."""
+    if broker_side == "jax_native" and jnative.broker_binary() is None:
+        pytest.skip("no compiler for the JAX package's native broker")
+    broker = {"jax": lambda: jtcp.FedBroker(native=False),
+              "port": lambda: FedBroker(native=False),
+              "port_native": lambda: _broker(True),
+              "jax_native": lambda: jtcp.FedBroker(native=True)}[
+                  broker_side]()
+    assert (broker._proc is not None) == broker_side.endswith("native")
     jparties = jdefault_parties(1)
     pparties = default_parties(1)
     port_guest = TcpFederation(broker.address, "wire", pparties[0], pparties,

@@ -15,7 +15,8 @@ runtime/task_executor.py) and the CLI's commands over them.
 - A revoked variable raises PermissionError in run_roles, in both
   packages, from the one privilege file they share.
 - submit_job with 2 clients (3 processes), MLP, FLASHE, 1 iteration on the
-  CPU; a host whose data is corrupt fails and aborts the job.
+  CPU over the native broker; a host whose data is corrupt fails and
+  aborts the job.
 - `python -m flashe_tpu_torch` submit --processes --cpu --json (with
   --checkpoint-dir and --publish), predict --cpu from that checkpoint and
   from the model store, submit-dsl --cpu, keygen, upload / download /
@@ -271,6 +272,7 @@ def test_submit_job_processes(stores):
     res = pjob.submit_job(_param(), shards, timeout=300, device="cpu",
                           checkpoint_dir=str(stores / "ckpt"))
     assert sorted(res) == ["__job__", "arbiter_0", "guest_0", "host_0"]
+    assert res["__job__"]["broker"] == "native"
     assert len(res["arbiter_0"]["loss_history"]) == 1
     for task in ("guest_0", "host_0"):
         out = res[task]

@@ -133,11 +133,14 @@ def test_job_runner_spawns_the_ports_executor(tmp_path, monkeypatch):
     repository root, and that command loads neither jax nor flashe_tpu."""
     assert pjob.EXECUTOR == "flashe_tpu_torch.runtime.task_executor"
     spawned = []
+    real_popen = subprocess.Popen
 
     class Spawned(Exception):
         pass
 
     def popen(argv, **kw):
+        if argv[0] != sys.executable:  # the native broker (or its g++)
+            return real_popen(argv, **kw)
         spawned.append((argv, kw["cwd"]))
         raise Spawned
 
