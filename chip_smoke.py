@@ -280,6 +280,28 @@ Phases, each of which fails the run:
      median from the first remote to the last get; both brokers stopped
      with SIGTERM and exiting 0, and no port fedbroker process left.  One
      `native_layer` JSON line.
+19. the Shakespeare workload (run after phase 18): (a) a seeded corpus in
+     shakespeare_10's CSV format (header id,x1..x81; rows of an order-1
+     Markov chain over tokens 1-82 with peaked transitions, zero-padded
+     tails; nine {i}_a.csv shards and b.csv of 512 rows) written to a
+     temporary directory and read back through data/shakespeare.py:
+     (512, 80) int32, y = x shifted by one token; (b) the mask kernel
+     against its plain version lane for lane at the GRU's 654,675 lanes
+     (6 x 109,112 + 3: the last AES block holds 3 lanes), int_bits 20:
+     encrypts at (idx, idx+1) for idx 0 and 8, the boundary decrypt at
+     (9, 0) in iterations 0 and 2, and its time beside its bound; (c)
+     tools/shakespeare_experiment.run_experiment, main's code path, with
+     gru_define(512, 256) (count_params_define 654,675), 9 clients and
+     the arbiter on the card, the first 256 rows of each shard (--limit
+     256), batch 128, Adam lr 0.01, plain and flashe, 3 rounds x 2 reps
+     (arm order alternating), eval limit 512, with submit's TF32
+     settings: every loss finite, each arm's federated loss
+     falling from round 0 to round 2 in every rep, flashe's within 1e-3
+     relative of plain's round by round in the same rep, the mask kernel
+     launched 9 encrypts + 9 boundary pairs a flashe round and never in
+     the plain arm; it prints both arms' steady round seconds, the
+     overhead's median and 95% CI, the local-training share of the
+     guest's round and the largest gap, and one `shakespeare` JSON line.
 It prints the script's seconds at the end of each phase.
 It prints ptxas's registers and spills of every kernel instance after the
 build and, where the toolkit has cuobjdump, the mask kernel's instruction
@@ -339,7 +361,8 @@ from flashe_tpu_torch.__main__ import main as cli_main
 from flashe_tpu_torch.crypto.encrypt_mode import EncryptModeCalculator
 from flashe_tpu_torch.crypto.paillier import (
     FloatPaillier, PaillierCipher, PaillierKeypair)
-from flashe_tpu_torch.data import federated_dataset, synthetic_dataset
+from flashe_tpu_torch.data import (federated_dataset, shakespeare,
+                                   synthetic_dataset)
 from flashe_tpu_torch.data.io import upload_csv
 from flashe_tpu_torch.data.kvstore import open_store
 from flashe_tpu_torch.data.remote_kv import _EXEC, _GET, _ITER
@@ -373,6 +396,7 @@ from flashe_tpu_torch.runtime.simulate import run_roles
 from flashe_tpu_torch.runtime.tracking import (
     Tracker, set_tracker, tracker)
 from flashe_tpu_torch.tools import bench, ceiling, roofline
+from flashe_tpu_torch.tools import shakespeare_experiment as se
 from flashe_tpu_torch.tools.bench import round_keys
 from flashe_tpu_torch.tools.roofline import mask_bound
 from flashe_tpu_torch.tools.timing import (
@@ -4533,6 +4557,199 @@ def run_native_phase(dev, smi):
             "card": smi}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the Shakespeare workload
+# ---------------------------------------------------------------------------
+
+# the reference's GRU define at full width (Embedding 83 -> 512, GRU 256,
+# Dense 83): 654,675 = 6 x 109,112 + 3 lanes of 20 bits, so the mask
+# kernel's last AES block carries 3 lanes; 9 clients (guest + 8 hosts) and
+# the arbiter, batch 128, Adam at lr 0.01, the eval limit 512 (the
+# experiment's defaults); 3 rounds and 2 reps of plain and flashe, arm
+# order alternating; a seeded corpus of 512 rows a file in shakespeare_10's
+# CSV format, of which each client trains on the first 256 (the
+# experiment's --limit; 2 batches a round: at 512 rows the phase took
+# 86 s, past its 60 s budget)
+N_GRU = 654_675
+SHAKE_CLIENTS, SHAKE_ROWS, SHAKE_ROUNDS, SHAKE_REPS = 9, 512, 3, 2
+SHAKE_LIMIT = 256
+SHAKE_BATCH, SHAKE_LR, SHAKE_EVAL = 128, 0.01, 512
+SHAKE_RTOL = 1e-3  # flashe's federated loss against plain's, same rep
+# (iter, add, minus) at the GRU's lanes: client 0's and client 8's
+# encrypts, the 9 clients' boundary decrypt in iterations 0 and 2
+SHAKE_MASK_CASES = ((0, 0, 1), (0, 8, 9), (0, 9, 0), (2, 9, 0))
+
+
+def check_gru_masks(dev):
+    """(b) The mask kernel against its plain version at N_GRU lanes, int
+    bits 20, for SHAKE_MASK_CASES; returns the max abs error."""
+    rk = round_keys(dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 19)
+    q = _rand_lanes(gen, dev, N_GRU, INT_BITS)
+    err = 0
+    for it, add, minus in SHAKE_MASK_CASES:
+        err = max(err, _same(
+            "mask kernel", fm.mask_apply(q, rk, it, add, minus, INT_BITS),
+            fm.mask_apply_ref(q, rk, it, add, minus, INT_BITS),
+            f"{N_GRU} lanes, iter {it}, streams ({add}, {minus})"))
+    return err
+
+
+def check_corpus(shards, eval_xy):
+    """(a) Every shard and the eval set read back as (rows, 80) int32 with
+    y shifted from x by one token, and the corpus pads with 0."""
+    pads = 0
+    for i, (x, y) in enumerate(shards + [eval_xy]):
+        rows = SHAKE_EVAL if i == len(shards) else SHAKE_ROWS
+        if (x.shape != (rows, shakespeare.SEQ_LEN) or y.shape != x.shape
+                or x.dtype != np.int32 or y.dtype != np.int32
+                or not np.array_equal(y[:, :-1], x[:, 1:])
+                or x.max() >= shakespeare.VOCAB or x.min() < 0):
+            raise AssertionError(f"phase 19: shard {i} reads back as "
+                                 f"{x.shape} {x.dtype}, or y is not x "
+                                 "shifted by one token")
+        pads += int((y == 0).sum())
+    if not pads:
+        raise AssertionError("phase 19: the corpus has no pad targets")
+    return pads
+
+
+def check_experiment(out):
+    """(c) The experiment's results: the parameter count on the card,
+    finite losses, each arm's federated loss falling in every rep, flashe
+    within SHAKE_RTOL of plain round by round in the same rep, and the
+    mask launches each arm's code makes (flashe: 9 encrypts + 9 boundary
+    pairs a round, all double; plain: none).  Returns the largest relative
+    gap."""
+    cfg = out["config"]
+    if cfg["params"] != N_GRU or cfg["device"] != "cuda:0":
+        raise AssertionError(f"phase 19: {cfg['params']} parameters on "
+                             f"{cfg['device']}")
+    per_run = {"plain": {},
+               "flashe": {"mask double": 2 * SHAKE_CLIENTS * SHAKE_ROUNDS}}
+    for name, rec in out["schemes"].items():
+        losses = [rec["train_loss"], rec["eval_loss"], rec["eval_acc"]]
+        losses += rec["fed_loss_reps"]
+        if (len(rec["fed_loss_reps"]) != SHAKE_REPS
+                or any(len(v) != SHAKE_ROUNDS for v in losses)
+                or not all(math.isfinite(v) for vs in losses for v in vs)):
+            raise AssertionError(f"phase 19: {name}: a loss is missing or "
+                                 f"not finite: {losses}")
+        for fed in rec["fed_loss_reps"]:
+            if not fed[-1] < fed[0]:
+                raise AssertionError(f"phase 19: {name}: the federated loss "
+                                     f"does not fall: {fed}")
+        if rec["launches_reps"] != [per_run[name]] * SHAKE_REPS:
+            raise AssertionError(f"phase 19: {name}: launches "
+                                 f"{rec['launches_reps']}, expected "
+                                 f"{per_run[name]} a run")
+    gap = max(abs(f - p) / abs(p) for pr, fr in zip(
+        out["schemes"]["plain"]["fed_loss_reps"],
+        out["schemes"]["flashe"]["fed_loss_reps"]) for p, f in zip(pr, fr))
+    if gap > SHAKE_RTOL:
+        raise AssertionError(f"phase 19: flashe's federated loss lies "
+                             f"{gap:.3e} (relative) from plain's")
+    return gap
+
+
+def run_shakespeare_phase(dev, card, smi, tf32):
+    """Phase 19: (a) a seeded corpus in shakespeare_10's format through
+    data/shakespeare.py, (b) the mask kernel at the GRU's 654,675 lanes,
+    (c) tools/shakespeare_experiment.py's runs of plain and flashe with the
+    full-width GRU, 9 clients, with submit's TF32 settings."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shakespeare_") as tmp:
+        shakespeare.write_markov_corpus(tmp, SHAKE_CLIENTS, SHAKE_ROWS,
+                                        seed=SEED)
+        eval_xy = shakespeare.load_eval(tmp, SHAKE_EVAL)
+        pads = check_corpus(shakespeare.load_clients(tmp, SHAKE_CLIENTS),
+                            eval_xy)
+        shards = shakespeare.load_clients(tmp, SHAKE_CLIENTS, SHAKE_LIMIT)
+        print(f"phase 19 (a): a seeded Markov corpus, {SHAKE_CLIENTS} shards "
+              f"and b.csv of {SHAKE_ROWS} rows, read back through "
+              f"data/shakespeare.py as ({SHAKE_ROWS}, {shakespeare.SEQ_LEN}) "
+              f"int32, y = x shifted by one; {pads:,} pad targets")
+
+        mask_err = check_gru_masks(dev)
+        k, plain, calls = time_kernel(dev, N_GRU)
+        bound, by = mask_bound(N_GRU, card)
+        print(f"phase 19 (b): the mask kernel at {N_GRU:,} lanes (6 x "
+              f"{N_GRU // 6:,} + {N_GRU % 6}), int_bits {INT_BITS}: equal to "
+              f"its plain version lane for lane (max abs error {mask_err}) "
+              f"for (iter, add, minus) in {list(SHAKE_MASK_CASES)}; "
+              f"{k:.4f} ms a call over CUDA graphs of calls, bound "
+              f"{bound:.4f} ms by {by}, share {bound / k:.3f}; {calls:.4f} "
+              f"ms over runs of host calls; plain torch {plain:.4f} ms "
+              f"({smi})")
+
+        define = se.gru_define(512, 256)
+        reset_launches()
+        before = launch_counts()
+        with submit_tf32(tf32):
+            out = se.run_experiment(
+                shards, eval_xy, define, SHAKE_ROUNDS, ("plain", "flashe"),
+                SHAKE_REPS, SHAKE_LR, SHAKE_BATCH, device=dev,
+                corpus="a seeded Markov corpus in shakespeare_10's format")
+        launched = launches_since(before)
+        gap = check_experiment(out)
+        want = {"mask double": SHAKE_REPS * 2 * SHAKE_CLIENTS * SHAKE_ROUNDS}
+        if launched != want or fm.mode_launches["double"] != want[
+                "mask double"]:
+            raise AssertionError(f"phase 19: the experiment launched "
+                                 f"{launched}, expected {want}")
+        se.write_docs(out, os.path.join(tmp, "CONVERGENCE_TORCH.md"))
+    pl, fl = out["schemes"]["plain"], out["schemes"]["flashe"]
+    share = {name: statistics.mean(t / r for t, r in zip(
+        rec["train_s"][1:], rec["round_s"][1:])) for name, rec in (
+            ("plain", pl), ("flashe", fl))}
+    secs = time.perf_counter() - t0
+    summary = {
+        "params": out["config"]["params"], "clients": SHAKE_CLIENTS,
+        "rows_a_shard": SHAKE_LIMIT, "rounds": SHAKE_ROUNDS,
+        "reps": SHAKE_REPS, "card": smi,
+        "mean_round_s": {"plain": statistics.mean(pl["mean_round_s_reps"]),
+                         "flashe": statistics.mean(fl["mean_round_s_reps"])},
+        "round_s_reps": {"plain": pl["round_s_reps"],
+                         "flashe": fl["round_s_reps"]},
+        "local_train_share_rep0": share,
+        "fed_loss_reps": {"plain": pl["fed_loss_reps"],
+                          "flashe": fl["fed_loss_reps"]},
+        "eval_loss_rep0": {"plain": pl["eval_loss"],
+                           "flashe": fl["eval_loss"]},
+        "max_rel_gap": gap,
+        **{k: out[k] for k in ("flashe_overhead_pct", "flashe_overhead_ci",
+                               "flashe_overhead_n_pairs",
+                               "flashe_overhead_reps")},
+        "launches": launched,
+        "mask": {"lanes": N_GRU, "max_abs_err": mask_err, "ms": k,
+                 "host_calls_ms": calls, "plain_ms": plain,
+                 "bound_ms": bound, "bound_by": by},
+        "seconds": secs}
+    print(f"phase 19 (c): tools/shakespeare_experiment.run_experiment, GRU "
+          f"(512, 256) with {N_GRU:,} parameters, {SHAKE_CLIENTS} clients + "
+          f"arbiter on the card, {SHAKE_LIMIT} rows a client, batch "
+          f"{SHAKE_BATCH}, Adam lr {SHAKE_LR}, "
+          f"{SHAKE_ROUNDS} rounds x {SHAKE_REPS} reps of plain and flashe: "
+          f"every loss finite, each arm's federated loss falling in every "
+          f"rep (plain {pl['fed_loss_reps']}, flashe {fl['fed_loss_reps']}), "
+          f"flashe within {gap:.3e} (relative, largest gap; limit "
+          f"{SHAKE_RTOL}) of plain round by round; launches {launched} "
+          f"(flashe: {SHAKE_CLIENTS} encrypts + {SHAKE_CLIENTS} boundary "
+          f"pairs a round, plain none); steady round plain "
+          f"{summary['mean_round_s']['plain']:.4f} s, flashe "
+          f"{summary['mean_round_s']['flashe']:.4f} s (host clock to a "
+          f"synchronize, rounds 1-{SHAKE_ROUNDS - 1}), overhead median "
+          f"{out['flashe_overhead_pct']}% [{out['flashe_overhead_ci'][0]}%, "
+          f"{out['flashe_overhead_ci'][1]}%] 95% CI over "
+          f"{out['flashe_overhead_n_pairs']} round pairs (reps "
+          f"{out['flashe_overhead_reps']}); local training "
+          f"{share['plain']:.3f} / {share['flashe']:.3f} of the guest's "
+          f"round; the port's precompute is a no-op, so the flashe arm "
+          f"encrypts in the round ({smi}); phase 19 {secs:.2f} s")
+    print(json.dumps({"shakespeare": summary}))
+    return summary
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4917,6 +5134,11 @@ def main(argv=None) -> int:
     print(json.dumps({"native_layer": native_layer}))
     stamp("phase 18 (the native layer)")
 
+    # the Shakespeare workload: its loader, the mask kernel at the GRU's
+    # lanes, the experiment's plain and flashe arms at full width
+    shake = run_shakespeare_phase(dev, card, smi, tf32)
+    stamp("phase 19 (the Shakespeare workload)")
+
     def trained(key):
         return sum(launches[key] for launches in train_launches.values())
 
@@ -4969,8 +5191,14 @@ def main(argv=None) -> int:
         "launches_comparison": cmp_launches["mask double"],
         "launches_multi_gpu": multi["mask"]["double"],
         "launches_bench": bench_launches["mask double"],
+        "launches_shakespeare": shake["launches"]["mask double"],
         "max_abs_err": max_err,
         "max_abs_err_bench_shapes": bench_mask_err["double"],
+        "max_abs_err_gru_shape": shake["mask"]["max_abs_err"],
+        "gru_shape": f"{N_GRU} lanes, int_bits {INT_BITS}",
+        "ms_gru_shape": shake["mask"]["ms"],
+        "plain_ms_gru_shape": shake["mask"]["plain_ms"],
+        "bound_ms_gru_shape": shake["mask"]["bound_ms"],
         "ms": times[N_FEMNIST][0],
         "host_calls_ms": times[N_FEMNIST][2],
         "plain_ms": times[N_FEMNIST][1],

@@ -46,8 +46,20 @@ class RandomPads:
         g.manual_seed(int.from_bytes(digest, "little") >> 1)
         return g
 
+    def rand(self, *shape) -> torch.Tensor:
+        """Uniform float32 draws on [0, 1)."""
+        return torch.rand(shape, generator=self._next(), device=self.device)
+
     def randn(self, *shape) -> torch.Tensor:
         return torch.randn(shape, generator=self._next(), device=self.device)
+
+    def add_randn_pads(self, a, w) -> torch.Tensor:
+        a = torch.as_tensor(a, device=self.device)
+        return a + self.randn(*a.shape) * w
+
+    def add_rand_pads(self, a, w) -> torch.Tensor:
+        a = torch.as_tensor(a, device=self.device)
+        return a + self.rand(*a.shape) * w
 
 
 class PadsCipher:

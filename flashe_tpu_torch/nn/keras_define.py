@@ -63,7 +63,7 @@ from flashe_tpu_torch.nn.models import (
     _CONV, _DENSE, _FlaxModel, _LSTMCell, _pair, _same_pad,
 )
 
-__all__ = ["KerasDefineModel"]
+__all__ = ["KerasDefineModel", "from_nn_define", "count_params_define"]
 
 # jax.nn's functions of these names, as flax exports them
 _ACTIVATIONS = {
@@ -357,3 +357,24 @@ class KerasDefineModel(_FlaxModel):
                                         spec["config"], y, cf)
         self._built = True
         return _last(y, cf)
+
+
+def from_nn_define(nn_define: dict, device="cuda") -> KerasDefineModel:
+    """The interpreter of an nn_define dict, on `device`."""
+    return KerasDefineModel(json.dumps(nn_define), device=device)
+
+
+@torch.no_grad()
+def count_params_define(model: KerasDefineModel, input_example,
+                        seed: int = 0) -> int:
+    """Total trainable parameter count (to cross-check the reference's
+    precompute.num_params, e.g. 1,206,590 for the FEMNIST CNN).  A model
+    whose shapes are still open first sees `input_example`, as
+    models.init_params shows it one; no parameter is drawn, so the count
+    does not depend on `seed` (kept for the JAX function's signature)."""
+    if model.shapes_open():
+        training = model.training
+        model.eval()
+        model(torch.as_tensor(input_example).to(model.device))
+        model.train(training)
+    return sum(p.numel() for p in model.parameters())

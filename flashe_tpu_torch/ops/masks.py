@@ -28,6 +28,7 @@ __all__ = [
     "lanes_from_blocks",
     "lanes_from_words",
     "prp_lane_stream",
+    "flashe_mask_pair",
     "reference_mask_stream_host",
 ]
 
@@ -128,6 +129,21 @@ def prp_lane_stream(round_keys, iter_index: int, stream_idx: int, count: int,
     lanes = lanes_from_blocks(aes.aes_encrypt_blocks(blocks, rk),
                               int_bits)[:count]
     return lanes[:, 0] if nlimbs_for(int_bits) == 1 else lanes
+
+
+def flashe_mask_pair(round_keys, iter_index: int, add_idx: int,
+                     minus_idx: int, count: int, int_bits: int,
+                     begin_block: int = 0):
+    """The (add, minus) mask streams used by double masking.
+
+    Encrypt uses (idx, idx+1); decrypt-after-aggregate uses (num_clients, 0)
+    — the non-cancelling telescope ends (jzf_flashe.py:599-666).
+    """
+    add = prp_lane_stream(round_keys, iter_index, add_idx, count, int_bits,
+                          begin_block)
+    minus = prp_lane_stream(round_keys, iter_index, minus_idx, count,
+                            int_bits, begin_block)
+    return add, minus
 
 
 def reference_mask_stream_host(seed: bytes, iter_index: int, stream_idx: int,

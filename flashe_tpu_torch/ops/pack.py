@@ -21,7 +21,7 @@ from flashe_tpu_torch import native
 from flashe_tpu_torch.ops.lanes import nlimbs_for
 
 __all__ = ["pack_lanes", "unpack_lanes", "pack_lanes_np", "unpack_lanes_np",
-           "packed_nbytes"]
+           "packed_nbytes", "pack_ints_reference"]
 
 
 def packed_nbytes(n: int, int_bits: int) -> int:
@@ -78,3 +78,12 @@ def unpack_lanes_np(data: bytes, n: int, int_bits: int) -> np.ndarray:
         lanes[:, src >> 5] |= bits[:, b].astype(np.uint32) << np.uint32(
             src & 31)
     return lanes
+
+
+def pack_ints_reference(values, int_bits: int) -> int:
+    """Reference-semantics packer: python big int, element 0 most
+    significant (mirrors jzf_weights.py:45-84; used by tests as oracle)."""
+    s = 0
+    for v in values:
+        s = (s << int_bits) | int(v)
+    return s

@@ -45,7 +45,7 @@ from flashe_tpu_torch.crypto.paillier import PaillierCipher, PaillierKeypair
 from flashe_tpu_torch.crypto.random_pads import PadsCipher, RandomPads
 from flashe_tpu_torch.nn import homo_nn
 from flashe_tpu_torch.nn import models as pmodels
-from flashe_tpu_torch.nn.keras_define import KerasDefineModel
+from flashe_tpu_torch.nn.keras_define import KerasDefineModel, from_nn_define
 from flashe_tpu_torch.nn.models import FemnistCNN
 from flashe_tpu_torch.nn.trainer import LocalTrainer
 from flashe_tpu_torch.nn.weights import WeightsCodec
@@ -68,7 +68,7 @@ from flashe_tpu_torch.runtime.dsl import run_dsl_job
 from flashe_tpu_torch.runtime.server import JobServer
 from flashe_tpu_torch.runtime.simulate import run_roles
 from flashe_tpu_torch.runtime.task_executor import run_task
-from flashe_tpu_torch.tools import compare_schemes
+from flashe_tpu_torch.tools import compare_schemes, shakespeare_experiment
 from flashe_tpu_torch import graft
 from flashe_tpu_torch.parallel import mesh_party, sharded
 from flashe_tpu_torch.parallel.fanout import DeviceFanout
@@ -309,6 +309,15 @@ def _constructors():
         "cluster": lambda: cli_main([
             "cluster", "-c", os.path.join(REPO, "deploy", "cluster_conf.yml"),
             "--run-local"]),
+        "from_nn_define": lambda: from_nn_define(
+            shakespeare_experiment.gru_define(8, 8)),
+        "run_scheme": lambda: shakespeare_experiment.run_scheme(
+            "plain", [], None, shakespeare_experiment.gru_define(8, 8), 1,
+            0.01, 8, 0),
+        "run_experiment": lambda: shakespeare_experiment.run_experiment(
+            [], None, shakespeare_experiment.gru_define(8, 8)),
+        "shakespeare_experiment": lambda: shakespeare_experiment.main([
+            "--dataset", os.path.join(REPO, "no-such-dataset")]),
         "compare_schemes": lambda: compare_schemes.main([
             "--params", "8", "--train-s", "1.0", "--schemes", "plain"]),
         "measure_scheme": lambda: compare_schemes.measure_scheme(
@@ -344,7 +353,9 @@ def _constructors():
     "build_model", "LocalTrainer", "HomoNNGuest", "HomoNNHost",
     "HomoNNArbiter", "KerasDefineModel", "submit_job", "submit_dsl_job",
     "run_dsl_job", "run_task", "JobServer", "build_party_cfg", "run_party",
-    "serve", "party", "cluster", "compare_schemes", "measure_scheme",
+    "serve", "party", "cluster", "from_nn_define", "run_scheme",
+    "run_experiment", "shakespeare_experiment", "compare_schemes",
+    "measure_scheme",
     "measure_train_step", "check_flashe_sum", "LocalLaneMesh",
     "DeviceFanout", "make_mesh", "encrypted_aggregate", "run_mesh_training",
     "mesh-party", "dryrun_multichip", "graft.entry"])
