@@ -1,0 +1,3 @@
+"""arbiter_aggregate_ms of a cell whose end-to-end time is the card's (round_device_ms)."""
+
+from benchmark.metrics.arbiter_aggregate_ms import read  # noqa: F401
