@@ -15,6 +15,7 @@ import threading
 from typing import Any, Dict, Tuple
 
 from flashe_tpu_torch.fed.transport import Federation, Party
+from flashe_tpu_torch.runtime.tracking import count
 
 __all__ = ["InMemBroker", "InMemFederation"]
 
@@ -33,11 +34,25 @@ class InMemBroker:
             self._cond.notify_all()
 
     def get(self, key: _Key, timeout: float) -> Any:
+        """The object put under `key`, waiting up to `timeout` seconds.
+        Every put wakes every waiting get; each wake is counted as
+        `wakeups` on the caller's open record ("fed.get"), so a get that
+        waited for one put and was woken by nine others counts ten."""
+        checks = 0
+
+        def arrived():
+            nonlocal checks
+            checks += 1
+            return key in self._store
+
         with self._cond:
-            ok = self._cond.wait_for(lambda: key in self._store, timeout)
-            if not ok:
-                raise TimeoutError(f"federation get timed out on {key}")
-            return self._store.pop(key)
+            ok = self._cond.wait_for(arrived, timeout)
+            obj = self._store.pop(key) if ok else None
+        if checks > 1:
+            count("wakeups", checks - 1)
+        if not ok:
+            raise TimeoutError(f"federation get timed out on {key}")
+        return obj
 
     def clean(self, name: str, src: Party, dst: Party):
         with self._cond:

@@ -17,6 +17,7 @@ import dataclasses
 from typing import Any, Dict, List, Sequence
 
 from flashe_tpu_torch.fed import consts
+from flashe_tpu_torch.runtime.tracking import span
 
 __all__ = ["Party", "Federation", "FederationAuthorization", "TransferStat",
            "default_parties"]
@@ -132,8 +133,9 @@ class Federation:
     def get(self, name: str, tag: str, src: Party, timeout: float = 600.0):
         if self.auth is not None:
             self.auth.check(name, src.role, self.local.role)
-        out = self._recv(name, f"{self.job_id}.{tag}", src, self.local,
-                         timeout)
+        with span("fed.get"):
+            out = self._recv(name, f"{self.job_id}.{tag}", src, self.local,
+                             timeout)
         self.stats.count_recv(name)
         return out
 

@@ -28,7 +28,7 @@ from flashe_tpu_torch.nn.trainer import LocalTrainer
 from flashe_tpu_torch.nn.weights import WeightsCodec
 from flashe_tpu_torch.protocol import aggregator
 from flashe_tpu_torch.runtime.config import HomoNNParam
-from flashe_tpu_torch.runtime.tracking import phase, tracker
+from flashe_tpu_torch.runtime.tracking import phase, set_round, span, tracker
 
 __all__ = ["HomoNNClient", "HomoNNGuest", "HomoNNHost", "HomoNNArbiter"]
 
@@ -69,18 +69,23 @@ class HomoNNClient:
         agg.set_codec(self.codec)
 
         degree = float(len(x))
-        flat_before = self.codec.flatten(self.trainer.params)
+        with span("flatten"):
+            flat_before = self.codec.flatten(self.trainer.params)
         for it in range(start_iter, p.max_iter):
+            set_round(it)
             with phase("local train"):
                 train_loss = self.trainer.train(
                     x, y, epochs=p.aggregate_every_n_epoch,
                     batch_size=min(p.batch_size, len(x)))
-            flat = self.codec.flatten(self.trainer.params)
+            with span("flatten"):
+                flat = self.codec.flatten(self.trainer.params)
             agg_flat = agg.aggregate_then_get(
                 flat, iter_index=it, before=flat_before, degree=degree,
                 suffix=(it,))
             if agg_flat is not None:
-                self.trainer.set_model_weights(self.codec.unflatten(agg_flat))
+                with span("unflatten"):
+                    weights = self.codec.unflatten(agg_flat)
+                self.trainer.set_model_weights(weights)
                 flat_before = agg_flat
 
             if agg_flat is None or agg.was_dropped:
@@ -95,7 +100,8 @@ class HomoNNClient:
                 self.aggregate_iter = it + 1
                 continue
 
-            loss, acc = self.trainer.evaluate(x, y)
+            with span("evaluate"):
+                loss, acc = self.trainer.evaluate(x, y)
             agg.send_loss(loss * degree, degree=degree, suffix=(it,))
             converged = agg.get_converge_status(suffix=(it, "conv"))
             tracker().callback_metric("train_loss", it, train_loss)

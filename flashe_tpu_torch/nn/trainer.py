@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from flashe_tpu_torch.device import resolve_device
+from flashe_tpu_torch.runtime.tracking import count, span
 
 __all__ = ["LocalTrainer", "make_optimizer", "OptaxAdam", "OptaxRMSprop"]
 
@@ -58,9 +59,12 @@ class OptaxAdam(torch.optim.Optimizer):
                     # divides by a python float as a product with its
                     # reciprocal, which rounds otherwise
                     t = torch.tensor(float(state["count"]))
-                    corrections[key] = [
-                        (1 - torch.tensor(b, dtype=torch.float32) ** t).to(
-                            p.device) for b in (b1, b2)]
+                    # a copy to the card waits
+                    with span("host sync", cpu=True):
+                        count("host_syncs", 2)
+                        corrections[key] = [
+                            (1 - torch.tensor(b, dtype=torch.float32) ** t)
+                            .to(p.device) for b in (b1, b2)]
                 bc1, bc2 = corrections[key]
                 u = (mu / bc1) / (torch.sqrt(nu / bc2) + group["eps"])
                 p.add_(-group["lr"] * u)
@@ -151,7 +155,10 @@ class LocalTrainer:
         return self.params
 
     def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a)).to(self.device)
+        # a copy from the host waits for the card
+        with span("host sync", cpu=True):
+            count("host_syncs")
+            return torch.as_tensor(np.asarray(a)).to(self.device)
 
     def train(self, x: np.ndarray, y: np.ndarray, epochs: int = 1,
               batch_size: int = 128) -> float:
@@ -160,7 +167,10 @@ class LocalTrainer:
         self.model.train()
         losses = []
         for _ in range(epochs):
-            perm = torch.randperm(n, generator=self._perm_gen).to(self.device)
+            perm = torch.randperm(n, generator=self._perm_gen)
+            with span("host sync", cpu=True):
+                count("host_syncs")
+                perm = perm.to(self.device)
             for b in range(0, n - batch_size + 1, batch_size) or [0]:
                 idx = perm[b:b + batch_size]
                 self.optimizer.zero_grad(set_to_none=True)
@@ -170,7 +180,10 @@ class LocalTrainer:
                 losses.append(loss.detach())
         if not losses:
             return 0.0
-        return float(torch.stack(losses).double().mean())
+        mean = torch.stack(losses).double().mean()
+        with span("host sync", cpu=True):
+            count("host_syncs")
+            return float(mean)
 
     @torch.no_grad()
     def _eval_step(self, xb, yb):
@@ -182,7 +195,9 @@ class LocalTrainer:
             acc = torch.sum(hit * w) / torch.clamp(torch.sum(w), min=1.0)
         else:
             acc = hit.mean()
-        return float(loss), float(acc)
+        with span("host sync", cpu=True):
+            count("host_syncs", 2)
+            return float(loss), float(acc)
 
     def evaluate(self, x: np.ndarray, y: np.ndarray,
                  batch_size: int = 512) -> Tuple[float, float]:

@@ -90,7 +90,7 @@ from flashe_tpu_torch.protocol.payload import (
 from flashe_tpu_torch.protocol.sparsify import (
     Sparsifier, SparsifyResult, decode_locations, encode_locations)
 from flashe_tpu_torch.quant.quantizer import QuantizingClient
-from flashe_tpu_torch.runtime.tracking import phase
+from flashe_tpu_torch.runtime.tracking import phase, set_round
 
 __all__ = ["ClientBlock", "Upload", "Selection", "client_upload",
            "client_select", "client_upload_sparse", "arbiter_reduce",
@@ -496,6 +496,7 @@ class Arbiter:
                               total=total)
 
     def aggregate_model(self, iter_index, suffix=tuple()):
+        set_round(iter_index)
         self._block.set_iter_index(iter_index)
         self._block.help_quantize()
 
@@ -725,14 +726,13 @@ class Client:
         this client for the round and sent no aggregate; a host dropped
         mid-upload still downloads, since the dropped frames carry the
         aggregate (see _dropped_marker)."""
+        set_round(iter_index)
         self.send_model(flat=flat, before=before, iter_index=iter_index,
                         degree=degree, suffix=suffix)
         if self._secure_aggregate == "flashe":
             # no-ops in the port: the kernel makes the masks in the launch
-            with phase("prepare_decrypt"):
-                self._block.prepare_decrypt()
-            with phase("prepare_encrypt"):
-                self._block.prepare_encrypt()
+            self._block.prepare_decrypt()
+            self._block.prepare_encrypt()
         return self.get_aggregated_model(suffix=suffix)
 
     # -- download ----------------------------------------------------------

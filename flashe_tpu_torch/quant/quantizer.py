@@ -23,6 +23,7 @@ from flashe_tpu_torch.nn.weights import WeightsCodec
 from flashe_tpu_torch.ops import quantize as qops
 from flashe_tpu_torch.ops.lanes import as_u32
 from flashe_tpu_torch.quant.aciq import ACIQ
+from flashe_tpu_torch.runtime.tracking import count, span
 
 __all__ = ["QuantizingClient", "QuantizingArbiter", "quantized_zero"]
 
@@ -91,8 +92,11 @@ class QuantizingClient(_QuantizingBase):
         self.past_std = np.ones(codec.n_layers, np.float32)
 
     def _spread(self, per_layer) -> torch.Tensor:
-        return self.codec.spread(torch.as_tensor(per_layer,
-                                                 device=self.device))
+        # a copy from the host waits for the card
+        with span("host sync", cpu=True):
+            count("host_syncs")
+            per_layer = torch.as_tensor(per_layer, device=self.device)
+        return self.codec.spread(per_layer)
 
     def compute_alphas(self) -> np.ndarray:
         alphas = np.array(
@@ -140,8 +144,10 @@ class QuantizingClient(_QuantizingBase):
         new global model."""
         flat = flat + self._spread(self.past_mean)
         mean, std = self.codec.layer_mean_std(flat)
-        self.past_mean = mean.cpu().numpy()
-        self.past_std = std.cpu().numpy()
+        with span("host sync", cpu=True):
+            count("host_syncs", 2)
+            self.past_mean = mean.cpu().numpy()
+            self.past_std = std.cpu().numpy()
         return flat
 
     def quantized_zero(self, u: float | None = None) -> int:

@@ -248,8 +248,8 @@ def test_submit_cli_json(capsys):
     assert len(out["loss_per_round"]) == _config()["param"]["max_iter"]
     assert np.all(np.isfinite(out["loss_per_round"]))
     assert set(out["phases"]) == {
-        "local train", "encoding", "encryption", "upload", "prepare_decrypt",
-        "prepare_encrypt", "download", "decryption", "decoding"}
+        "local train", "encoding", "encryption", "upload", "download",
+        "decryption", "decoding"}
     for stat in out["phases"].values():
         assert set(stat) == {"total_s", "count"} and stat["count"] == 3
 
