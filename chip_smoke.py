@@ -302,6 +302,25 @@ Phases, each of which fails the run:
      the plain arm; it prints both arms' steady round seconds, the
      overhead's median and 95% CI, the local-training share of the
      guest's round and the largest gap, and one `shakespeare` JSON line.
+20. the trainer's steps as CUDA graphs (run after phase 19), the GRU at
+     the shakespeare_gru cell's widths (embed 512, hidden 256, batch 128 of
+     256 rows a client): (a) two clients in threads replaying their steps
+     and two running them eagerly, 3 rounds of train, install and
+     evaluate under torch's deterministic algorithms: losses, parameters,
+     Adam's mu, nu and counts equal bit for bit, each mode's first step
+     eager and every later one a replay; under the default algorithms the
+     embedding's backward sums in an order that varies from run to run,
+     and the phase prints how far two eager clients end apart; one
+     client's round of 2 steps timed replayed and eager; (b) the cell's
+     FLASHE job on a seeded Markov corpus, 9 clients building their
+     models in their threads and the arbiter through run_roles, 3 rounds,
+     captures concurrent: every client's steps counted as in (a), its Adam
+     count 6, the federated loss falling; (c) FemnistCNN: its training
+     draws dropout and stays eager, its evaluation replays; (d) another
+     thread builds clients' models on the card (their layers draw from the
+     default generator, which a capture holds) while a client's steps are
+     captured, and a FemnistCNN client trains eagerly in a third (its
+     steps after the first take no lock); one `graphs` JSON line.
 It prints the script's seconds at the end of each phase.
 It prints ptxas's registers and spills of every kernel instance after the
 build and, where the toolkit has cuobjdump, the mask kernel's instruction
@@ -345,6 +364,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -393,8 +413,9 @@ from flashe_tpu_torch.runtime.config import HomoNNParam
 from flashe_tpu_torch.runtime.client import FlasheClient
 from flashe_tpu_torch.runtime.job_manager import JobRegistry
 from flashe_tpu_torch.runtime.simulate import run_roles
+from flashe_tpu_torch.runtime import tracking
 from flashe_tpu_torch.runtime.tracking import (
-    Tracker, set_tracker, tracker)
+    Tracker, set_tracker, span, tracker)
 from flashe_tpu_torch.tools import bench, ceiling, roofline
 from flashe_tpu_torch.tools import shakespeare_experiment as se
 from flashe_tpu_torch.tools.bench import round_keys
@@ -4750,6 +4771,318 @@ def run_shakespeare_phase(dev, card, smi, tf32):
     return summary
 
 
+# phase 20: the trainer's steps as CUDA graphs
+# ---------------------------------------------------------------------------
+
+# the GRU at the benchmark's shakespeare_gru cell's widths (embed 512,
+# hidden 256, 83 tokens, sequence 80, batch 128 of 256 rows a client, Adam
+# lr 0.01, pad label 0); its FLASHE job as the cell runs it, for 3 rounds
+GRAPH_ROWS, GRAPH_BATCH, GRAPH_ROUNDS, GRAPH_CLIENTS = 256, 128, 3, 9
+GRAPH_LR = 0.01
+# a client's steps in 3 rounds of 2 training batches and 1 evaluation
+# batch: each mode's first step eager, every later one a replay
+GRAPH_COUNTS = {"train": (1, 5), "eval": (1, 2)}  # (eager, graph)
+
+
+def _token_rows(seed, rows=GRAPH_ROWS):
+    """(x, y) of `rows` seeded token rows, y the next token, pads (0)
+    among them."""
+    seq = np.random.default_rng(seed).integers(
+        0, shakespeare.VOCAB, (rows, shakespeare.SEQ_LEN + 1)).astype(
+            np.int32)
+    return seq[:, :-1], seq[:, 1:]
+
+
+def _step_counts(records):
+    """{mode: (eager, graph)} of the steps counted on the records named
+    "local train" (train) and "evaluate" (eval)."""
+    out = {}
+    for mode, name in (("train", "local train"), ("eval", "evaluate")):
+        got = [r.counts or {} for r in records if r.name == name]
+        out[mode] = (sum(c.get("eager_steps", 0) for c in got),
+                     sum(c.get("graph_steps", 0) for c in got))
+    return out
+
+
+def _graph_trainer(dev, x, seed, eager):
+    model = KerasDefineModel(se.gru_define(512, 256), device=dev)
+    init_params(model, x[:1], seed=0)
+    t = LocalTrainer(model, optimizer="adam", learning_rate=GRAPH_LR,
+                     seed=seed, label_pad_id=0, device=dev)
+    if eager:
+        t._replayable = lambda drew: False
+    return t
+
+
+def _graph_rounds(t, x, y, w0, name):
+    """GRAPH_ROUNDS rounds of train, install (half way back to w0) and
+    evaluate in this thread, each phase inside its record; returns the
+    losses, the final state and the step counts."""
+    set_tracker(Tracker(name))
+    losses = []
+    for _ in range(GRAPH_ROUNDS):
+        with span("local train"):
+            loss = t.train(x, y, batch_size=GRAPH_BATCH)
+        t.set_model_weights({k: v * 0.5 + w0[k] * 0.5
+                             for k, v in t.params.items()})
+        with span("evaluate"):
+            losses.append((loss, t.evaluate(x, y)))
+    state = t.optimizer.state
+    tensors = {"params": t.params}
+    for key in ("mu", "nu"):
+        tensors[key] = t.model.flax_view(
+            {n: state[p][key] for n, p in t.model.named_parameters()})
+    return {"losses": losses, "tensors": tensors,
+            "count": {s["count"] for s in state.values()},
+            "steps": _step_counts(tracker().read())}
+
+
+def _threads(fns):
+    """Run each fn in a thread of its own; their results in order."""
+    with concurrent.futures.ThreadPoolExecutor(len(fns)) as pool:
+        return [f.result() for f in [pool.submit(fn) for fn in fns]]
+
+
+def _differing(a, b) -> int:
+    """How many parameters and moments of two _graph_rounds differ."""
+    return sum(int((v != b["tensors"][kind][k]).sum())
+               for kind, tree in a["tensors"].items()
+               for k, v in tree.items())
+
+
+def check_graphs_equal_eager(dev):
+    """(a) Two clients in threads with graphs, two with eager steps, from
+    the same weights and rows, under torch's deterministic algorithms:
+    every loss, parameter and moment equal bit for bit after GRAPH_ROUNDS
+    rounds; the graph clients' steps counted as GRAPH_COUNTS says.  Under
+    the default algorithms an eager client against another (not asserted:
+    a kernel of the GRU's backward sums in an order that varies from run
+    to run).  Then one client's round of 2 steps timed, graph against
+    eager."""
+    rows = [_token_rows(SEED + 20 + i) for i in range(2)]
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for eager in (False, True):
+                ts = [_graph_trainer(dev, x, 7 + i, eager)
+                      for i, (x, _) in enumerate(rows)]
+                w0 = ts[0].params
+                runs[eager] = _threads([
+                    functools.partial(_graph_rounds, t, x, y, w0,
+                                      f"phase20_{eager}_{i}")
+                    for i, (t, (x, y)) in enumerate(zip(ts, rows))])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondeterministic = sorted({str(w.message)[:120] for w in caught
+                               if "deterministic" in str(w.message)})
+    x, y = rows[0]
+    free = [_graph_rounds(_graph_trainer(dev, x, 7, True), x, y, w0,
+                          f"phase20_free_{i}") for i in range(2)]
+    for i, (g, e) in enumerate(zip(runs[False], runs[True])):
+        if g["losses"] != e["losses"] or not (
+                g["count"] == e["count"] == {2 * GRAPH_ROUNDS}):
+            raise AssertionError(f"phase 20 (a): client {i}: graph losses "
+                                 f"{g['losses']} count {g['count']}, eager "
+                                 f"{e['losses']} count {e['count']}")
+        for kind, tree in g["tensors"].items():
+            for k, v in tree.items():
+                if not torch.equal(v, e["tensors"][kind][k]):
+                    raise AssertionError(f"phase 20 (a): client {i}: {kind} "
+                                         f"{k} differs, graph against eager")
+        if g["steps"] != GRAPH_COUNTS or e["steps"] != {
+                m: (a + b, 0) for m, (a, b) in GRAPH_COUNTS.items()}:
+            raise AssertionError(f"phase 20 (a): client {i}: steps "
+                                 f"{g['steps']} (graphs), {e['steps']} "
+                                 "(eager)")
+    times = {}
+    for eager in (False, True):
+        x, y = rows[0]
+        t = _graph_trainer(dev, x, 7, eager)
+        for _ in range(2):
+            t.train(x, y, batch_size=GRAPH_BATCH)
+
+        def one_round():
+            t.train(x, y, batch_size=GRAPH_BATCH)
+            torch.cuda.synchronize()
+
+        times["eager" if eager else "graph"] = _median_ms(one_round, 5)
+    return (runs[False][0]["losses"], times, _differing(*free),
+            nondeterministic)
+
+
+def _gru_param(rounds=GRAPH_ROUNDS):
+    """The shakespeare_gru cell's HomoNNParam, `rounds` rounds."""
+    return HomoNNParam.from_dict({
+        "model": "nn_define",
+        "model_kwargs": {"nn_define": se.gru_define(512, 256)},
+        "secure_aggregate": "flashe",
+        "secure_aggregate_args": {
+            "quantize": {"int_bits": INT_BITS, "batch": False,
+                         "element_bits": ELEMENT_BITS, "padding": True,
+                         "secure": True},
+            "precompute": {"enable": True}, "mode": "parallel",
+            "num_partitions": 1},
+        "optimizer": "adam", "learning_rate": GRAPH_LR,
+        "max_iter": rounds, "batch_size": GRAPH_BATCH, "label_pad_id": 0})
+
+
+def run_graph_job(dev):
+    """(b) The shakespeare_gru cell's FLASHE job on a seeded Markov corpus
+    (phase 19's), 9 clients and the arbiter through run_roles for
+    GRAPH_ROUNDS rounds, each client building its model in its thread:
+    every client's steps as GRAPH_COUNTS says, its Adam count 2 a round,
+    finite falling losses."""
+    param = _gru_param()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graphs_") as tmp:
+        shakespeare.write_markov_corpus(tmp, GRAPH_CLIENTS, GRAPH_ROWS,
+                                        seed=SEED + 20)
+        shards = shakespeare.load_clients(tmp, GRAPH_CLIENTS, GRAPH_ROWS)
+    clients = {}
+
+    def client(cls, i, trv):
+        c = clients[i] = cls(param, seed=i, device=dev)
+        c.fit(trv, *shards[i])
+        return [h["loss"] for h in c.history]
+
+    t0 = time.perf_counter()
+    results = run_roles(
+        GRAPH_CLIENTS - 1, functools.partial(client, HomoNNGuest, 0),
+        lambda trv, h: client(HomoNNHost, 1 + h, trv),
+        HomoNNArbiter(param, device=dev).fit, timeout=600.0)
+    secs = time.perf_counter() - t0
+    found = tracking.latest()
+    steps = {}
+    for i in range(GRAPH_CLIENTS):
+        name = "guest" if i == 0 else f"host{i - 1}"
+        steps[name] = _step_counts(found[name].read())
+        counts = {s["count"] for s in
+                  clients[i].trainer.optimizer.state.values()}
+        if steps[name] != GRAPH_COUNTS or counts != {2 * GRAPH_ROUNDS}:
+            raise AssertionError(f"phase 20 (b): {name}: steps "
+                                 f"{steps[name]}, Adam counts {counts}")
+    fed = results["arbiter"]
+    if not (all(math.isfinite(v) for v in fed) and fed[-1] < fed[0]):
+        raise AssertionError(f"phase 20 (b): federated losses {fed}")
+    return fed, steps, secs
+
+
+def check_cnn_steps(dev):
+    """(c) FemnistCNN: its training steps draw dropout and stay eager, its
+    evaluation replays: 2 rounds of 2 steps and 1 evaluation batch."""
+    set_tracker(Tracker("phase20_cnn"))
+    model = FemnistCNN(device=dev)
+    gen = np.random.default_rng(SEED + 21)
+    x = gen.standard_normal((256, 28, 28, 1)).astype(np.float32)
+    y = gen.integers(0, 62, 256).astype(np.int32)
+    init_params(model, x[:1], seed=0)
+    t = LocalTrainer(model, device=dev)
+    for _ in range(2):
+        with span("local train"):
+            t.train(x, y, batch_size=128)
+        with span("evaluate"):
+            t.evaluate(x, y)
+    steps = _step_counts(tracker().read())
+    if steps != {"train": (4, 0), "eval": (1, 1)}:
+        raise AssertionError(f"phase 20 (c): FemnistCNN's steps {steps}")
+    return steps
+
+
+def check_draws_beside_captures(dev):
+    """(d) Another thread builds clients' models (their layers draw from
+    the card's default generator, which a capture holds), and a third
+    trains FemnistCNN, whose steps stay eager (dropout) and take no lock,
+    while a client's steps are captured: none raises, and the eager
+    client's steps after its first count as eager."""
+    x, y = _token_rows(SEED + 22)
+    t = _graph_trainer(dev, x, 3, False)
+    param = _gru_param()
+    done = threading.Event()
+    gen = np.random.default_rng(SEED + 23)
+    cx = gen.standard_normal((128, 28, 28, 1)).astype(np.float32)
+    cy = gen.integers(0, 62, 128).astype(np.int32)
+    cnn = LocalTrainer(FemnistCNN(device=dev), device=dev)
+    init_params(cnn.model, cx[:1], seed=0)
+    cnn.train(cx, cy, batch_size=128)  # its one warm-up, before the captures
+
+    def draw():
+        n = 0
+        while not done.is_set():
+            HomoNNHost(param, seed=n, device=dev)._build(x[:1])
+            n += 1
+        return n
+
+    def eager():
+        set_tracker(Tracker("phase20_eager"))
+        while True:
+            with span("local train"):
+                loss = cnn.train(cx, cy, batch_size=128)
+            if not math.isfinite(loss):
+                raise AssertionError(f"phase 20 (d): FemnistCNN loss {loss}")
+            if done.is_set():
+                break
+        return _step_counts(tracker().read())["train"]
+
+    def train():
+        try:
+            set_tracker(Tracker("phase20_draws"))
+            for _ in range(2):
+                with span("local train"):
+                    t.train(x, y, batch_size=GRAPH_BATCH)
+                with span("evaluate"):
+                    t.evaluate(x, y)
+            return _step_counts(tracker().read())
+        finally:
+            done.set()
+
+    draws, eager_steps, steps = _threads([draw, eager, train])
+    if steps != {"train": (1, 3), "eval": (1, 1)}:
+        raise AssertionError(f"phase 20 (d): steps {steps}")
+    if eager_steps[1] or not eager_steps[0]:
+        raise AssertionError(f"phase 20 (d): FemnistCNN's steps (eager, "
+                             f"graph) {eager_steps}")
+    return draws, eager_steps[0]
+
+
+def run_graph_phase(dev, smi):
+    """Phase 20: the trainer's steps as CUDA graphs at the GRU cell's
+    widths: (a) replays equal to eager steps bit for bit, (b) the cell's
+    job with 9 concurrent clients, (c) FemnistCNN's dropout kept eager,
+    (d) the default generator drawn beside captures."""
+    t0 = time.perf_counter()
+    losses, times, free, warned = check_graphs_equal_eager(dev)
+    print(f"phase 20 (a): the GRU (512, 256) trained {GRAPH_ROUNDS} rounds "
+          f"of {GRAPH_ROWS // GRAPH_BATCH} steps of {GRAPH_BATCH} x "
+          f"{shakespeare.SEQ_LEN}, installed and evaluated by 2 clients in "
+          f"threads with CUDA graphs and by 2 with eager steps, under "
+          f"torch's deterministic algorithms (warnings {warned}): losses, "
+          f"parameters, Adam's mu and nu and counts equal bit for bit "
+          f"(client 0: {losses}); steps {GRAPH_COUNTS} (eager, graph); "
+          f"under the default algorithms two eager clients end {free:,} "
+          f"values apart; a round of 2 steps alone {times['graph']:.2f} ms "
+          f"replayed, {times['eager']:.2f} ms eager (median of 5, host "
+          f"clock to a synchronize; {smi})")
+    fed, steps, secs = run_graph_job(dev)
+    print(f"phase 20 (b): the GRU's FLASHE job, {GRAPH_CLIENTS} clients "
+          f"and the arbiter through run_roles, {GRAPH_ROUNDS} rounds in "
+          f"{secs:.2f} s with the models' build: no capture error, every "
+          f"client's steps (eager, graph) {steps['guest']}, federated "
+          f"losses {fed}")
+    cnn = check_cnn_steps(dev)
+    draws, eager = check_draws_beside_captures(dev)
+    secs = time.perf_counter() - t0
+    print(f"phase 20 (c): FemnistCNN's steps (eager, graph) {cnn}: its "
+          f"dropout keeps training eager; (d) {draws} GRU models built on "
+          f"the card in one thread and {eager} eager FemnistCNN training "
+          f"steps in another during a client's captures; phase 20 "
+          f"{secs:.2f} s")
+    return {"losses": losses, "round_ms": times, "job_fed_loss": fed,
+            "eager_values_apart": free, "deterministic_warnings": warned,
+            "job_steps": steps, "cnn_steps": cnn, "draws": draws,
+            "eager_beside_captures": eager, "seconds": secs}
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5138,6 +5471,11 @@ def main(argv=None) -> int:
     # lanes, the experiment's plain and flashe arms at full width
     shake = run_shakespeare_phase(dev, card, smi, tf32)
     stamp("phase 19 (the Shakespeare workload)")
+
+    # the trainer's steps as CUDA graphs: replays against eager steps, the
+    # GRU cell's job with concurrent captures, dropout kept eager
+    print(json.dumps({"graphs": run_graph_phase(dev, smi)}))
+    stamp("phase 20 (the trainer's CUDA graphs)")
 
     def trained(key):
         return sum(launches[key] for launches in train_launches.values())

@@ -3,14 +3,43 @@
 Every entry point of the port takes device="cuda" by default and resolves
 it here, so it runs on the card unless the caller asks for the CPU
 (device="cpu", as the tests do).  The multi-device entry points
-(flashe_tpu_torch/parallel/) default to every visible card."""
+(flashe_tpu_torch/parallel/) default to every visible card.
+
+CAPTURE_LOCK keeps the trainer's CUDA graph captures apart from the work
+of other threads that a capture breaks, or that breaks a capture: a wait
+for the whole card (`synchronize`, a phase's synchronize), which cannot
+wait for a stream being captured; the trainer's warm-up of a step it may
+capture next; and building a model on the card (nn/models.py's
+build_model and init_params), whose layers draw from the card's default
+generator, which a capture holds (a draw from it in another thread raises
+meanwhile).  Code that waits for the card calls `synchronize` here, not
+torch.cuda.synchronize, and other such work runs through
+`outside_captures`."""
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
 __all__ = ["resolve_device", "resolve_devices", "visible_cards",
-           "same_device"]
+           "same_device", "CAPTURE_LOCK", "outside_captures",
+           "synchronize"]
+
+CAPTURE_LOCK = threading.Lock()
+
+
+def outside_captures(fn, *args, **kwargs):
+    """fn(*args, **kwargs), never while another thread captures a CUDA
+    graph."""
+    with CAPTURE_LOCK:
+        return fn(*args, **kwargs)
+
+
+def synchronize(device=None):
+    """torch.cuda.synchronize(device), never while another thread captures
+    a CUDA graph."""
+    outside_captures(torch.cuda.synchronize, device)
 
 
 def resolve_device(device) -> torch.device:

@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from flashe_tpu_torch.device import resolve_device
+from flashe_tpu_torch.device import outside_captures, resolve_device
 
 __all__ = ["build_model", "init_params", "FemnistCNN", "CifarResNet",
            "CharLSTM", "MLP"]
@@ -98,12 +98,15 @@ class _FlaxModel(nn.Module):
         super().__init__()
         self.device = resolve_device(device)
         self.generator = torch.Generator(self.device).manual_seed(0)
+        self.drew = False  # set by each draw from `generator`
 
     def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         """flax's Dropout: keep with probability 1 - rate, scale by its
-        inverse; the identity in eval mode."""
+        inverse; the identity in eval mode.  A draw sets `drew`, which
+        tells the trainer that a CUDA graph of the step would repeat it."""
         if not self.training or rate == 0.0:
             return x
+        self.drew = True
         keep = torch.rand(x.shape, generator=self.generator,
                           device=x.device) < 1.0 - rate
         return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
@@ -379,6 +382,13 @@ _REGISTRY: Dict[str, Callable[..., _FlaxModel]] = {
 
 
 def build_model(name: str, device="cuda", **kwargs: Any) -> _FlaxModel:
+    """The model `name` on `device`; its layers draw their first values
+    from the device's default generator, never beside a CUDA graph's
+    capture (device.outside_captures)."""
+    return outside_captures(_build_model, name, device, **kwargs)
+
+
+def _build_model(name: str, device, **kwargs: Any) -> _FlaxModel:
     if name in ("keras", "nn_define"):
         # a Keras-JSON nn_define from a reference-style job conf
         # (federatedml/nn/backend/tf_keras/jzf_nn_model.py:99-109)
@@ -420,7 +430,13 @@ def init_params(model: _FlaxModel, input_example=None, seed: int = 0) -> dict:
     sorted flax-name order from a CPU torch.Generator seeded `seed`, and
     load them into `model`: the same model on every device for one seed.
     A model whose input width is still open (MLP, a Keras nn_define) first
-    sees `input_example`.  Returns model.params_to_flax()."""
+    sees `input_example`, which builds its layers (a draw from the
+    device's default generator, so never beside a capture).  Returns
+    model.params_to_flax()."""
+    return outside_captures(_init_params, model, input_example, seed)
+
+
+def _init_params(model: _FlaxModel, input_example, seed: int) -> dict:
     if model.shapes_open():
         if input_example is None:
             raise ValueError(f"{type(model).__name__} needs an input example "

@@ -30,6 +30,7 @@ import threading
 
 import torch
 
+from flashe_tpu_torch.device import synchronize
 from flashe_tpu_torch.ops import _build, aes
 from flashe_tpu_torch.ops.lanes import lane_add, lane_sub, nlimbs_for
 from flashe_tpu_torch.ops.masks import prp_lane_stream
@@ -42,6 +43,7 @@ MODES = ("double", "single", "limbs", "scatter")
 launches = 0
 mode_launches = dict.fromkeys(MODES, 0)
 _count_lock = threading.Lock()
+_te0_lock = threading.Lock()
 
 
 def _check_streams(add_idx, minus_idx):
@@ -104,11 +106,18 @@ def _modes_kernel():
     return fn
 
 
-@functools.cache
 def _te0(device: torch.device) -> torch.Tensor:
-    """The kernel's table on `device`, uploaded once and kept."""
+    """The kernel's table on `device`, uploaded once and kept.  One thread
+    uploads it: two first calls at once each made a table, and the one the
+    cache let go was freed while its kernel was still to read it."""
+    with _te0_lock:
+        return _te0_upload(device)
+
+
+@functools.cache
+def _te0_upload(device: torch.device) -> torch.Tensor:
     t = torch.from_numpy(aes.te0_words().view("int32")).to(device)
-    torch.cuda.synchronize(device)
+    synchronize(device)
     return t
 
 
@@ -157,19 +166,19 @@ def _launch(q: torch.Tensor, rk: torch.Tensor, iter_index, add_idx, minus_idx,
         return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        te0 = _te0(q.device).data_ptr()
+        te0 = _te0(q.device)
         if nl == 1 and add_idx is not None and minus_idx is not None:
             rc, mode = _kernel()(q.data_ptr(), out.data_ptr(), q.shape[0],
                                  rk.data_ptr(), int(iter_index), int(add_idx),
                                  int(minus_idx), int_bits, int(base_block),
-                                 stream, te0), "double"
+                                 stream, te0.data_ptr()), "double"
         else:
             streams = (add_idx is not None) | (minus_idx is not None) << 1
             rc = _modes_kernel()(q.data_ptr(), out.data_ptr(), q.shape[0],
                                  rk.data_ptr(), int(iter_index),
                                  int(add_idx or 0), int(minus_idx or 0),
                                  streams, int_bits, int(base_block), None, 0,
-                                 stream, te0)
+                                 stream, te0.data_ptr())
             mode = "single" if nl == 1 else "limbs"
     if rc != 0:
         raise RuntimeError(f"flashe_mask kernel launch failed: CUDA error {rc}")

@@ -24,7 +24,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from flashe_tpu_torch.device import resolve_devices
+from flashe_tpu_torch.device import resolve_devices, synchronize
 
 __all__ = ["DeviceFanout"]
 
@@ -86,7 +86,7 @@ class DeviceFanout:
                 for o in outs]
         for dev in {t.device for o in outs for t in o}:
             if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+                synchronize(dev)
         cols = tuple(np.concatenate([h[j].numpy() for h in host])
                      for j in range(len(host[0])))
         return cols if tupled else cols[0]

@@ -16,8 +16,10 @@ synchronize it measures the enqueue, and the device time lands in whichever
 later phase waits on it.  A Tracker made with `synchronize` (for example
 torch.cuda.synchronize) calls it when each phase begins and ends, so that
 a phase holds its own device work; it waits for the whole device, the other
-threads' work included.  `phase_log` keeps every phase in the order it
-ended, so that a run's phases can be read an iteration at a time.
+threads' work included, and never while another thread captures a CUDA
+graph (device.outside_captures).  `phase_log` keeps every phase in the
+order it ended, so that a run's phases can be read an iteration at a
+time.
 
 Every Tracker also keeps `records`, one a phase or `span`, always: its
 name, start and end on `time.perf_counter_ns()`, the thread CPU time spent
@@ -53,6 +55,8 @@ import time
 from collections import defaultdict, namedtuple
 from itertools import chain
 from typing import Callable
+
+from flashe_tpu_torch.device import outside_captures
 
 __all__ = ["phase", "span", "count", "set_round", "tracker", "Tracker",
            "Record", "set_tracker", "latest"]
@@ -225,14 +229,14 @@ def phase(name: str):
     with _Span(t, name, True):
         if t.synchronize is not None:
             with _Span(t, "sync", True):
-                t.synchronize()
+                outside_captures(t.synchronize)
         t0 = time.perf_counter()
         try:
             yield
         finally:
             if t.synchronize is not None:
                 with _Span(t, "sync", True):
-                    t.synchronize()
+                    outside_captures(t.synchronize)
             dt = time.perf_counter() - t0
             t.record_phase(name, dt)
             LOGGER.debug("end %s (%.4fs)", name, dt)

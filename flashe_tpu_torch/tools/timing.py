@@ -20,6 +20,8 @@ import time
 
 import torch
 
+from flashe_tpu_torch.device import synchronize
+
 __all__ = ["event_ms", "run_ms", "time_turns", "graph_ms", "sync",
            "host_run_s", "timeit", "device_run_ms", "launch_counts",
            "launches_since"]
@@ -76,7 +78,7 @@ def graph_ms(fn, reps):
     builds or uploads once is there; torch.cuda.graph captures on a side
     stream, and what the calls allocate comes from the graph's own pool."""
     fn()
-    torch.cuda.synchronize()
+    synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):
@@ -88,9 +90,10 @@ def graph_ms(fn, reps):
 
 
 def sync(device: torch.device):
-    """Wait for the card's work on `device` (nothing on the CPU)."""
+    """Wait for the card's work on `device` (nothing on the CPU), never
+    beside a capture (device.synchronize)."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        synchronize(device)
 
 
 def host_run_s(fn, reps, device: torch.device) -> float:

@@ -3,8 +3,8 @@
 A phase and a span each keep a record (start and end in perf_counter ns,
 thread CPU, parent, round, counts), a plain tuple that the garbage
 collector stops tracking once it has closed; a phase's two synchronizes
-are child records named "sync", and its (name, seconds), phase_log and
-summary are what they were before records.  `count` lands on the
+are child records named "sync", taken under the capture lock, and its
+(name, seconds), phase_log and summary are what they were before records.  `count` lands on the
 innermost open record, `latest` finds each name's newest Tracker, and the
 in-memory broker's gets count every wake on their "fed.get" records.
 """
@@ -17,6 +17,7 @@ import time
 
 import pytest
 
+from flashe_tpu_torch.device import CAPTURE_LOCK
 from flashe_tpu_torch.fed.consts import ARBITER
 from flashe_tpu_torch.fed.inmem import InMemBroker, InMemFederation
 from flashe_tpu_torch.fed.transport import default_parties
@@ -66,6 +67,16 @@ def test_nested_records_parent_and_round(fresh):
         if r.parent >= 0:
             p = recs[r.parent]
             assert p.start_ns <= r.start_ns and r.end_ns <= p.end_ns
+
+
+def test_a_phase_waits_for_the_card_outside_captures(fresh):
+    """A phase's two synchronizes run under the capture lock, so that
+    neither waits for a stream another thread is capturing."""
+    held = []
+    fresh(synchronize=lambda: held.append(CAPTURE_LOCK.locked()))
+    with phase("work"):
+        assert not CAPTURE_LOCK.locked()
+    assert held == [True, True]
 
 
 @pytest.mark.parametrize("child_s", [0.0, 0.02])

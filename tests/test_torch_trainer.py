@@ -9,12 +9,25 @@ checkpoint (runtime/checkpoint.py) against the JAX package on the CPU.
   epochs: the params agree at atol 1e-5 for each optimizer, and evaluate
   at rtol 1e-5.
 - _softmax_ce with and without pad_id equals the JAX one.
-- A checkpoint round-trips params, optimizer state, aggregate_iter and
-  quantizer statistics bit for bit, and load_model restores a client
-  (tests/test_checkpoint.py's checks).
+- A checkpoint round-trips params, optimizer state (each count a host
+  int), aggregate_iter and quantizer statistics bit for bit, and
+  load_model restores a client (tests/test_checkpoint.py's checks).
+- The step over tensors that stay in place, run eagerly and replayed (a
+  CUDA graph's stand-in that reruns the captured function, the optimizer
+  seeing a capture), reproduces the trainer as it was before graphs (each
+  count's Adam corrections copied from the host) bit for bit over 3
+  rounds with an install between them, for each optimizer, on the MLP and
+  a small GRU define; Adam's table of corrections holds the per-count
+  float32 values across refills; steps are replayed only where the
+  device allows it and the step drew no dropout, and each is counted in
+  the record open around it; build_model and init_params wait while a
+  capture holds the capture lock.
 """
 
 from __future__ import annotations
+
+import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -24,14 +37,20 @@ import pytest
 import torch
 
 from flashe_tpu.nn import models as jmodels
+from flashe_tpu_torch.device import CAPTURE_LOCK
 from flashe_tpu.nn import trainer as jtrainer
 from flashe_tpu_torch.nn import models as pmodels
+from flashe_tpu_torch.nn import trainer as ptrainer
 from flashe_tpu_torch.nn.homo_nn import HomoNNGuest
+from flashe_tpu_torch.nn.keras_define import KerasDefineModel
 from flashe_tpu_torch.nn.trainer import LocalTrainer, _softmax_ce, \
     make_optimizer
 from flashe_tpu_torch.runtime.checkpoint import load_checkpoint, \
     save_checkpoint
 from flashe_tpu_torch.runtime.config import HomoNNParam
+from flashe_tpu_torch.runtime.tracking import Tracker, set_tracker, span, \
+    tracker
+from flashe_tpu_torch.tools.shakespeare_experiment import gru_define
 
 OPTIMIZERS = ("adam", "sgd", "rmsprop")
 
@@ -196,6 +215,7 @@ def test_checkpoint_roundtrip(tmp_path, mlp_data):
     for i, s in want["state"].items():
         assert set(s) == {"count", "mu", "nu"}
         assert got["state"][i]["count"] == s["count"] == 3
+        assert type(got["state"][i]["count"]) is int
         for k in ("mu", "nu"):
             assert torch.equal(got["state"][i][k], s[k]), (i, k)
     for k, v in t.params.items():
@@ -222,3 +242,279 @@ def test_load_model_restores_client(tmp_path):
     dst.load_model(path, x[:1])
     assert dst.aggregate_iter == 5
     np.testing.assert_array_equal(dst.predict(x), src.predict(x))
+
+
+# -- the step over tensors that stay in place, eager and replayed ------------
+
+class _TodaysAdam(torch.optim.Optimizer):
+    """OptaxAdam's step before its table: each count's corrections made on
+    the host in float32 and copied to the parameters' device."""
+
+    def __init__(self, params, lr):
+        super().__init__(params, dict(lr=lr, b1=0.9, b2=0.999, eps=1e-8))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["b1"], group["b2"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state.update(count=0, mu=torch.zeros_like(p),
+                                 nu=torch.zeros_like(p))
+                state["count"] += 1
+                g, mu, nu = p.grad, state["mu"], state["nu"]
+                mu.mul_(b1).add_((1 - b1) * g)
+                nu.mul_(b2).add_((1 - b2) * (g * g))
+                t = torch.tensor(float(state["count"]))
+                bc1, bc2 = [(1 - torch.tensor(b, dtype=torch.float32) ** t)
+                            .to(p.device) for b in (b1, b2)]
+                u = (mu / bc1) / (torch.sqrt(nu / bc2) + group["eps"])
+                p.add_(-group["lr"] * u)
+
+
+def _todays_train(t, x, y, batch_size):
+    """LocalTrainer.train as it was before graphs (one epoch)."""
+    n = x.shape[0]
+    xs, ys = torch.as_tensor(x), torch.as_tensor(y)
+    t.model.train()
+    losses = []
+    perm = torch.randperm(n, generator=t._perm_gen)
+    for b in range(0, n - batch_size + 1, batch_size) or [0]:
+        idx = perm[b:b + batch_size]
+        t.optimizer.zero_grad(set_to_none=True)
+        loss = _softmax_ce(t.model(xs[idx]), ys[idx], t.pad_id)
+        loss.backward()
+        t.optimizer.step()
+        losses.append(loss.detach())
+    return float(torch.stack(losses).double().mean())
+
+
+@pytest.fixture
+def cpu_graphs(monkeypatch):
+    """Steps replayed on the CPU: a graph's stand-in whose capture runs
+    nothing and whose replay reruns the captured function over the static
+    batch into the static outputs, the optimizer seeing a capture, as a
+    CUDA graph's kernels repeat the step's device work and leave its host
+    half to `advance`; every step that draws nothing replays."""
+    flag = {"on": False}
+
+    class CpuGraph(ptrainer._StepGraph):
+        def _capture(self, fn, stream):
+            out = []
+
+            def replay():
+                flag["on"] = True
+                try:
+                    out[:] = fn(self.x, self.y)
+                finally:
+                    flag["on"] = False
+            return types.SimpleNamespace(replay=replay), out
+
+    monkeypatch.setattr(ptrainer, "_StepGraph", CpuGraph)
+    monkeypatch.setattr(ptrainer, "_capturing", lambda t: flag["on"])
+    monkeypatch.setattr(LocalTrainer, "_replayable",
+                        lambda self, drew: not drew)
+
+
+def _token_rows(seed, rows=32, seq=10, vocab=20):
+    tokens = np.random.default_rng(seed).integers(
+        0, vocab, (rows, seq + 1)).astype(np.int32)
+    return tokens[:, :-1], tokens[:, 1:]
+
+
+def _setup(kind, name, seed=5):
+    """(trainer, x, y, batch size) of a small model."""
+    if kind == "mlp":
+        rng = np.random.RandomState(3)
+        y = rng.randint(0, 10, 48).astype(np.int32)
+        x = rng.randn(48, 32).astype(np.float32)
+        model, pad, bs = pmodels.MLP(device="cpu"), None, 16
+    else:
+        x, y = _token_rows(1)
+        model = KerasDefineModel(gru_define(8, 8, vocab=20, seq_len=10),
+                                 device="cpu")
+        pad, bs = 0, 16
+    pmodels.init_params(model, x[:1], seed=0)
+    t = LocalTrainer(model, optimizer=name, learning_rate=1e-2, seed=seed,
+                     label_pad_id=pad, device="cpu")
+    return t, x, y, bs
+
+
+def _rounds(t, x, y, bs, train, rounds=3):
+    """Train, install half way back to the start, evaluate: each round's
+    (loss, eval loss, eval accuracy)."""
+    w0 = t.params
+    out = []
+    for _ in range(rounds):
+        loss = train(t, x, y, bs)
+        t.set_model_weights({k: v * 0.5 + w0[k] * 0.5
+                             for k, v in t.params.items()})
+        out.append((loss, *t.evaluate(x, y)))
+    return out
+
+
+def _same_state(a, b):
+    for (k, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        assert torch.equal(p, q), k
+        sa, sb = a.optimizer.state[p], b.optimizer.state[q]
+        assert set(sa) == set(sb), k
+        for key, v in sa.items():
+            if torch.is_tensor(v):
+                assert torch.equal(v, sb[key]), (k, key)
+            else:
+                assert type(v) is type(sb[key]) and v == sb[key], (k, key)
+
+
+@pytest.mark.parametrize("replayed", [False, True], ids=["eager", "replayed"])
+@pytest.mark.parametrize("kind", ["mlp", "gru"])
+@pytest.mark.parametrize("name", OPTIMIZERS)
+def test_the_step_reproduces_todays_trainer(request, name, kind, replayed):
+    if replayed:
+        request.getfixturevalue("cpu_graphs")
+    t, x, y, bs = _setup(kind, name)
+    ref, _, _, _ = _setup(kind, name)
+    if name == "adam":
+        ref.optimizer = _TodaysAdam(ref.model.parameters(), 1e-2)
+    set_tracker(Tracker("trainer_test"))
+    with span("local train"):
+        got = _rounds(t, x, y, bs, lambda t_, *a: t_.train(*a[:2],
+                                                          batch_size=a[2]))
+    want = _rounds(ref, x, y, bs, _todays_train)
+    assert got == want
+    _same_state(t, ref)
+    steps = 3 * (len(x) // bs) + 3  # the train steps and 1 eval batch a round
+    counts = tracker().read()[0].counts
+    if replayed:
+        assert counts == {"eager_steps": 2, "graph_steps": steps - 2}
+        assert all(isinstance(v, ptrainer._StepGraph)
+                   for v in t._steps.values())
+    else:
+        assert counts == {"eager_steps": steps}
+        assert set(t._steps.values()) == {ptrainer._EAGER}
+
+
+def test_bias_correction_table_keeps_the_float32_bits(monkeypatch):
+    """The table's row of each count 1 .. 3 blocks holds today's float32
+    corrections bit for bit, refilled in place once a block, each refill
+    one host sync."""
+    block = 8
+    c = ptrainer._Corrections(0.9, 0.999, torch.device("cpu"), block)
+    set_tracker(Tracker("table_test"))
+    table = c.table
+    with span("steps"):
+        for t in range(1, 3 * block + 1):
+            got = c.take(t, False)
+            want = [1 - torch.tensor(b, dtype=torch.float32) ** torch.tensor(
+                float(t)) for b in (0.9, 0.999)]
+            for g, w in zip(got, want):
+                assert g.dtype == torch.float32 and g.item() == w.item(), t
+    assert c.table is table and c.at == 3 * block + 1
+    assert tracker().read()[0].counts is None  # syncs in children
+    syncs = [r for r in tracker().read() if r.name == "host sync"]
+    assert len(syncs) == 3 and all(r.counts == {"host_syncs": 1}
+                                   for r in syncs)
+    # a capture takes only the row a seek set
+    with pytest.raises(RuntimeError, match="seek"):
+        c.take(5, True)
+    # and the optimizer at the default block: today's steps bit for bit
+    monkeypatch.setattr(ptrainer.OptaxAdam, "BLOCK", block)
+    p = [torch.nn.Parameter(torch.ones(3)) for _ in range(2)]
+    q = [torch.nn.Parameter(torch.ones(3)) for _ in range(2)]
+    a, b = ptrainer.OptaxAdam(p, 1e-2), _TodaysAdam(q, 1e-2)
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(2 * block + 3):
+        for x, z in zip(p, q):
+            x.grad = torch.randn(3, generator=gen)
+            z.grad = x.grad.clone()
+        a.step()
+        b.step()
+    for x, z in zip(p, q):
+        assert torch.equal(x, z)
+        assert a.state[x]["count"] == b.state[z]["count"] == 2 * block + 3
+
+
+def test_only_steps_that_draw_nothing_replay(cpu_graphs):
+    """With replays allowed, FemnistCNN's training (dropout) stays eager and
+    its evaluation replays from its second batch; each step counts in the
+    record open around it."""
+    gen = np.random.default_rng(4)
+    x = gen.standard_normal((8, 28, 28, 1)).astype(np.float32)
+    y = gen.integers(0, 62, 8).astype(np.int32)
+    cnn = pmodels.FemnistCNN(device="cpu")
+    pmodels.init_params(cnn, x[:1])
+    t = LocalTrainer(cnn, device="cpu")
+    set_tracker(Tracker("engage_test"))
+    for _ in range(2):
+        with span("local train"):
+            t.train(x, y, batch_size=4)
+        with span("evaluate"):
+            t.evaluate(x, y)
+    recs = [r for r in tracker().read() if r.name != "host sync"]
+    assert [r.counts for r in recs] == [
+        {"eager_steps": 2}, {"eager_steps": 1},
+        {"eager_steps": 2}, {"graph_steps": 1}]
+    assert cnn.drew
+    assert t._steps[("train", (4, 28, 28, 1), (4,))] is ptrainer._EAGER
+
+
+def test_the_cpu_steps_stay_eager(mlp_data):
+    """Without the stand-in the CPU never replays; a state_dict loaded
+    after the graphs are made has them captured anew (with the stand-in,
+    below)."""
+    x, y, _ = mlp_data
+    model = pmodels.MLP(device="cpu")
+    pmodels.init_params(model, x[:1])
+    t = LocalTrainer(model, device="cpu")
+    set_tracker(Tracker("cpu_test"))
+    with span("local train"):
+        t.train(x, y, batch_size=16)
+        t.train(x, y, batch_size=16)
+    assert tracker().read()[0].counts == {"eager_steps": 6}
+    assert not model.drew
+
+
+def test_a_loaded_state_is_captured_anew(cpu_graphs, mlp_data):
+    """Loading a state_dict replaces Adam's moments, which the graphs
+    write: they are dropped, the next step runs eagerly and captures
+    again, and the trainer stays with an eager one bit for bit."""
+    x, y, _ = mlp_data
+    ts = []
+    for _ in range(2):
+        model = pmodels.MLP(device="cpu")
+        pmodels.init_params(model, x[:1])
+        ts.append(LocalTrainer(model, device="cpu"))
+    ts[1]._replayable = lambda drew: False
+    for t in ts:
+        t.train(x, y, batch_size=16)
+        state = t.optimizer.state_dict()
+        t.optimizer.load_state_dict(state)
+        t.train(x, y, batch_size=16)
+    _same_state(*ts)
+    assert isinstance(ts[0]._steps[("train", (16, 32), (16,))],
+                      ptrainer._StepGraph)
+
+
+@pytest.mark.parametrize("build", ["build_model", "init_params"])
+def test_model_builds_wait_for_captures(build):
+    """Building a model draws its layers from the device's default
+    generator, which a capture holds: build_model and init_params wait
+    while the capture lock is held, and go on once it is let go."""
+    x = np.zeros((1, 32), np.float32)
+    model = pmodels.MLP(device="cpu")
+    calls = {"build_model": lambda: pmodels.build_model("mlp", device="cpu"),
+             "init_params": lambda: pmodels.init_params(model, x)}
+    done = threading.Event()
+
+    def work():
+        calls[build]()
+        done.set()
+
+    with CAPTURE_LOCK:
+        th = threading.Thread(target=work)
+        th.start()
+        assert not done.wait(0.2)
+    th.join(30)
+    assert done.is_set()
